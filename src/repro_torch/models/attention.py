@@ -1,0 +1,160 @@
+"""Attention substrate: GQA, RoPE, qk-norm, sliding-window / global layers,
+ported from ``repro.models.attention``.
+
+* **window layers (prefill)** call ``ops.sliding_window_attention`` at every
+  prompt length: the SWA kernel on the card, and on the CPU its plain
+  version, which is the JAX package's ``banded_window_attention`` with P·V
+  in fp32.  For S <= w the band is the whole causal triangle, so this also
+  covers the JAX path's full-attention branch for short prompts.
+* **global layers (prefill)** loop over query chunks, each attending to all
+  keys with a causal mask.
+* **decode**: one query token against a KV cache; window layers keep a ring
+  buffer of w slots (global position p in slot p % w), global layers the
+  full sequence.  Decode writes the new key and value into the cache in
+  place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.swa import swa_plain as banded_window_attention
+from repro_torch.models.common import ModelConfig, rms_norm, rope
+
+__all__ = ["NEG_INF", "banded_window_attention", "decode_attention",
+           "full_attention_chunked", "init_cache", "prefill_attention",
+           "qkv_project"]
+
+NEG_INF = -1e30
+Cache = Dict[str, torch.Tensor]
+
+
+def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n, dh)
+
+
+def qkv_project(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> q (B,S,H,dh), k/v (B,S,KV,dh) with RoPE + qk-norm."""
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.dh)
+    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.dh)
+    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (..., Sq, KV, G, dh), k: (..., Sk, KV, dh) -> fp32 (..., KV, G, Sq, Sk).
+    Upcasting first gives the fp32 accumulation of JAX's
+    ``preferred_element_type=float32`` (products of bf16 values are exact
+    in fp32)."""
+    return torch.einsum("...qkgd,...skd->...kgqs", q.float(), k.float())
+
+
+def _gqa_context(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs: (..., KV, G, Sq, Sk), v: (..., Sk, KV, dh) -> (..., Sq, KV, G, dh)."""
+    return torch.einsum("...kgqs,...skd->...qkgd", probs.to(v.dtype), v)
+
+
+def full_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           q_chunk: int) -> torch.Tensor:
+    """Causal full attention over query chunks (O(S·c) score memory)."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = dh ** -0.5
+    kpos = torch.arange(S, device=q.device)
+    c = min(q_chunk, S)
+    outs = []
+    for i0 in range(0, S, c):
+        qi = q[:, i0:i0 + c]
+        n = qi.shape[1]                                # the last may be short
+        s = _gqa_scores(qi.reshape(B, n, KV, G, dh), k) * scale
+        qpos = i0 + torch.arange(n, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]          # causal
+        s = torch.where(mask, s, NEG_INF)
+        outs.append(_gqa_context(torch.softmax(s, dim=-1), v))
+    return torch.cat(outs, dim=1).reshape(B, S, H, dh)
+
+
+def init_cache(cfg: ModelConfig, window: Optional[int], batch: int,
+               max_seq: int, dtype: torch.dtype, device=None) -> Cache:
+    """KV cache for one attention layer (unstacked).
+
+    Window layers use a ring buffer of size ``window`` with per-slot global
+    positions; global layers use the full sequence buffer.
+    """
+    size = min(window, max_seq) if window else max_seq
+    shape = (batch, size, cfg.n_kv_heads, cfg.dh)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((size,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def decode_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                     x: torch.Tensor, cache: Cache, position: int
+                     ) -> Tuple[torch.Tensor, Cache]:
+    """x: (B, 1, D); returns (attention output (B, 1, D), the cache, updated
+    in place)."""
+    B = x.shape[0]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    G = H // KV
+    pos1 = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = qkv_project(cfg, p, x, pos1)
+    k, v, pos = cache["k"], cache["v"], cache["pos"]
+    slot = position % k.shape[1]
+    k[:, slot] = k_new[:, 0]
+    v[:, slot] = v_new[:, 0]
+    pos[slot] = position
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(B, 1, KV, G, dh).float(),
+                     k.float()) * (dh ** -0.5)
+    valid = (pos >= 0) & (pos <= position)
+    s = torch.where(valid, s, NEG_INF)
+    probs = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return ctx.reshape(B, 1, H * dh) @ p["wo"], cache
+
+
+def prefill_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                      x: torch.Tensor, window: Optional[int],
+                      positions: torch.Tensor, cache: Optional[Cache] = None
+                      ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Prefill attention; fills ``cache`` (fresh, from ``init_cache``) if
+    given."""
+    q, k, v = qkv_project(cfg, p, x, positions)
+    if window is not None:
+        out = ops.sliding_window_attention(q, k, v, window)
+    else:
+        out = full_attention_chunked(q, k, v, cfg.q_chunk)
+    B, S = x.shape[:2]
+    new_cache = None
+    if cache is not None:
+        size = cache["k"].shape[1]
+        if size >= S:
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
+            cache["pos"][:S] = torch.arange(S, dtype=torch.int32,
+                                            device=x.device)
+            new_cache = cache
+        else:  # ring buffer smaller than the prefill: keep the tail
+            tail_p = torch.arange(S - size, S, dtype=torch.int32,
+                                  device=x.device)
+            # ring alignment: global position p lives in slot p % size
+            roll = (S - size) % size
+            new_cache = {
+                "k": torch.roll(k[:, -size:], shifts=roll, dims=1),
+                "v": torch.roll(v[:, -size:], shifts=roll, dims=1),
+                "pos": torch.roll(tail_p, shifts=roll, dims=0),
+            }
+    out = out.reshape(B, S, cfg.n_heads * cfg.dh)
+    return out @ p["wo"], new_cache

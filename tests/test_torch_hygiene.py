@@ -1,0 +1,70 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the ``repro``
+package, and its copy of the uBFT protocol stays the same code as the
+original."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+#: protocol modules that the port copies verbatim (imports rewritten)
+COPIED = [f"core/{m}.py" for m in (
+    "consensus", "smr", "crypto", "ctbcast", "tbcast", "registers", "node",
+    "substrate", "health", "membership")] + [
+    "sim/events.py", "sim/net.py", "runtime/server.py"]
+
+_IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
+
+_CHECK_IMPORTS = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith("jax") or name == "repro" or name.startswith("repro."):
+            raise ModuleNotFoundError(f"the port may not import {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=f"{SRC}{os.pathsep}{ROOT}")
+    res = subprocess.run([sys.executable, "-c", _CHECK_IMPORTS], env=env,
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20     # every module was imported
+
+
+def _without_attest_batch(text: str) -> str:
+    """The file with ``attest_batch`` cut out: its device branch is the
+    port's own (CUDA instead of Pallas)."""
+    start = text.index("\ndef attest_batch(")
+    end = text.index("\nclass ", start)
+    return text[:start] + text[end:]
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_protocol_copy_matches_original(rel):
+    original = (SRC / "repro" / rel).read_text()
+    copy = (SRC / "repro_torch" / rel).read_text()
+    expected = _IMPORT.sub(r"\1repro_torch", original)
+    if rel == "core/crypto.py":
+        expected, copy = _without_attest_batch(expected), _without_attest_batch(copy)
+    assert copy == expected

@@ -1,0 +1,129 @@
+"""The port's kernels, through their plain versions on the CPU, against the
+JAX package: the Pallas kernels in interpret mode and the oracles of
+``repro.kernels.ref``.  Inputs are made with numpy from a seed and handed to
+both frameworks.  The CUDA kernels themselves run only on the card and are
+checked there by ``chip_smoke.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import crypto as jcrypto
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.runtime import attest as jattest
+
+from repro_torch.bridge import tensor_from_numpy
+from repro_torch.core import crypto as tcrypto
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.swa import swa_plain
+from repro_torch.runtime import attest
+
+torch.set_num_threads(2)
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _words_np(x: np.ndarray) -> np.ndarray:
+    """The uint32 words that the digest hashes: raw 16-bit words of
+    bf16/f16, raw 32-bit words of f32/int32/uint32."""
+    if x.dtype.itemsize == 2:
+        return x.view(np.uint16).astype(np.uint32)
+    return x.view(np.uint32)
+
+
+def _fp_input(n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32) * 100
+    if dtype == "uint32":
+        return rng.integers(0, 2 ** 32, size=n, dtype=np.uint32)
+    if dtype == "bfloat16":
+        return np.asarray(jnp.asarray(x).astype(jnp.bfloat16))
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize("n,dtype", [
+    (100, "float32"), (4096, "float32"), (5000, "bfloat16"), (12345, "int32"),
+    (777, "float16"), (3000, "uint32"), (1, "bfloat16"),
+])
+def test_fingerprint_plain_matches_jax_bit_for_bit(n, dtype):
+    x = _fp_input(n, dtype, seed=n)
+    t = tensor_from_numpy(x)
+    got = ops.fingerprint(t)
+    w = _words_np(x)
+    want = {
+        "pallas": int(jops.fingerprint(jnp.asarray(x))[0]),
+        "ref": int(jref.fingerprint_ref(jnp.asarray(w))[0]),
+        "attest": int(jattest.fingerprint_array(jnp.asarray(x))),
+        "attest_words_np": jcrypto.attest_words_np(w),
+        "port ref": ref.fingerprint_ref(torch.from_numpy(w.astype(np.int64))),
+        "port attest": attest.fingerprint_array(t),
+    }
+    assert want == {k: got for k in want}
+    # one changed word changes the digest
+    t2 = t.clone()
+    t2.view(torch.int16 if t.element_size() == 2 else torch.int32)[n // 2] ^= 1
+    assert ops.fingerprint(t2) != got
+
+
+def test_attest_batch_numpy_backend_matches_reference():
+    rng = np.random.default_rng(3)
+    arrays = [rng.integers(0, 2 ** 32, size=n, dtype=np.uint32)
+              for n in (0, 1, 4096, 5000)]
+    assert tcrypto.attest_batch(arrays) == jcrypto.attest_batch(arrays)
+    assert tcrypto.attest_batch(arrays) == [
+        ops.fingerprint(torch.from_numpy(a.view(np.int32))) for a in arrays]
+
+
+def _swa_inputs(B, S, H, KV, dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((B, S, H, dh), (B, S, KV, dh), (B, S, KV, dh))]
+    jx = [jnp.asarray(a).astype(dtype) for a in arrs]
+    return jx, [tensor_from_numpy(np.asarray(a)) for a in jx]
+
+
+def _tol(dtype):
+    # bf16 outputs round to 8 bits of mantissa; fp32 differs only in the
+    # order of the sums
+    return dict(rtol=2e-2, atol=2e-2) if dtype == jnp.bfloat16 else \
+        dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,dh,w", [
+    (1, 32, 2, 2, 8, 8),
+    (2, 64, 4, 2, 16, 16),
+    (1, 96, 4, 1, 32, 32),    # S not a multiple of 2w — exercises padding
+    (2, 128, 8, 4, 16, 32),
+    (1, 72, 4, 1, 16, 16),    # KV = 1, G = 4, ragged last chunk
+])
+def test_swa_plain_matches_pallas(B, S, H, KV, dh, w, dtype):
+    (jq, jk, jv), (q, k, v) = _swa_inputs(B, S, H, KV, dh, dtype, seed=S + H)
+    want = jops.sliding_window_attention(jq, jk, jv, window=w)
+    got = ops.sliding_window_attention(q, k, v, w)
+    assert got.dtype == q.dtype and got.shape == (B, S, H, dh)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+
+
+@pytest.mark.parametrize("P,S,dh,w", [(3, 40, 8, 8), (2, 33, 16, 16)])
+def test_swa_ref_matches_jax_ref_and_plain(P, S, dh, w):
+    (jq, jk, jv), (q, k, v) = _swa_inputs(1, S, P, P, dh, jnp.float32, seed=P)
+    planes = [x[0].transpose(0, 1) for x in (q, k, v)]          # (P, S, dh)
+    got = ref.swa_ref(*planes, window=w)
+    want = jref.swa_ref(*(jnp.transpose(x[0], (1, 0, 2)) for x in (jq, jk, jv)),
+                        window=w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    plain = swa_plain(q, k, v, w)[0].transpose(0, 1)
+    np.testing.assert_allclose(plain.numpy(), got.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_wrappers_refuse_devices_without_a_kernel_or_plain_path():
+    with pytest.raises(ValueError):
+        ops.fingerprint(torch.zeros(4, device="meta"))
+    q = torch.zeros(1, 8, 2, 4)
+    with pytest.raises(ValueError):
+        ops.sliding_window_attention(q, q.to("meta"), q, 4)
