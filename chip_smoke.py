@@ -3,17 +3,25 @@
 
   python3 chip_smoke.py
 
-1. prints the card and builds the CUDA kernels of ``src/repro_torch`` with
-   ``nvcc`` (one process per source, all at once);
+1. prints the card and builds the four CUDA kernels of ``src/repro_torch``
+   with ``nvcc`` (one process per source, all at once);
 2. holds the fingerprint kernel against its plain version, bit for bit;
 3. holds the sliding-window-attention kernel against its plain version at
-   gemma3-1b's shapes, and times it beside the plain version and
-   ``F.scaled_dot_product_attention`` with a banded mask;
-4. checks full-width gemma3-1b layers (one 5:1 group, fp32) on the card
-   against the same layers on the CPU;
-5. serves full-width gemma3-1b (26 layers, bf16, random weights from seed 0)
-   through the 3-replica uBFT token server, and checks that this path
-   launched every kernel and that the replicas agree.
+   gemma3-1b's and recurrentgemma-2b's shapes, and times it beside the
+   plain version and ``F.scaled_dot_product_attention`` with a banded mask;
+4. holds the RG-LRU scan kernel against its plain version at
+   recurrentgemma-2b's width, bit for bit against itself on a repeat;
+5. holds the chunkwise mLSTM kernel (h and the final state) against its
+   plain version at xlstm-1.3b's head shape, bit for bit against itself;
+6. checks full-width layers in fp32 (one group of each arch: gemma3-1b's
+   5:1, recurrentgemma-2b's RG-LRU, RG-LRU, attention, xlstm-1.3b's three
+   mLSTM and one sLSTM) on the card against the same layers on the CPU;
+7. serves each arch at full width and depth (bf16, random weights from
+   seed 0) through the 3-replica uBFT token server: gemma3-1b,
+   recurrentgemma-2b and xlstm-1.3b.  Each path's launch counts are reset
+   just before it and read just after; the script checks that the path
+   launched each of its kernels, that the replicas agree, and that a decode
+   outside the server gives the same tokens.
 
 Any failure raises.  The line before the last is a JSON object of
 per-kernel numbers; the last line is ``{"ok": true, "device": ...}``.
@@ -47,6 +55,8 @@ try:
     from repro_torch.kernels import cuda, ops  # noqa: E402
     from repro_torch.kernels.fingerprint import (fingerprint_cuda,  # noqa: E402
                                                  fingerprint_plain)
+    from repro_torch.kernels.mlstm import mlstm_plain  # noqa: E402
+    from repro_torch.kernels.rglru import rglru_plain  # noqa: E402
     from repro_torch.kernels.swa import swa_plain  # noqa: E402
     from repro_torch.launch import serve  # noqa: E402
     from repro_torch.models.common import Transformer, init_params  # noqa: E402
@@ -61,6 +71,11 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 CORE_OPS = 67e12
 SWA_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+RGLRU_TOL = 1e-5                       # tests/test_kernels.py's rtol = atol
+# h: tests/test_kernels.py's rtol = atol; the fp32 state differs from the
+# plain version's only in the order of fp32 sums, whatever the input type
+MLSTM_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-4}
+MLSTM_STATE_TOL = 2e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -169,15 +184,33 @@ def swa_bound_ms(S: int, H: int, KV: int, dh: int, w: int, elem: int,
                                    else "operations")
 
 
+def _close(name: str, got: torch.Tensor, want: torch.Tensor,
+           tol: float) -> float:
+    """Fail unless |got - want| <= tol + tol |want| everywhere; returns the
+    largest absolute difference."""
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{name}: shape {tuple(got.shape)} or non-finite values")
+    err = (got - want).abs()
+    check(not bool((err > tol + tol * want.abs()).any()),
+          f"{name}: max abs err {float(err.max())} (tol {tol})")
+    return float(err.max())
+
+
 def phase_swa() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    w, H, dh = 512, 4, 256
     worst = 0.0
-    cases = [(S, 1, False) for S in (300, 512, 1168, 2048)]
-    cases += [(1168, 2, False), (1168, 1, True)]
+    # (arch, H, KV, dh, w, S, strided): gemma3-1b, then recurrentgemma-2b
+    # (G = 10, a window longer than every prompt of the main path)
+    cases = [("gemma3-1b", 4, 1, 256, 512, S, False)
+             for S in (300, 512, 1168, 2048)]
+    cases += [("gemma3-1b", 4, 2, 256, 512, 1168, False),
+              ("gemma3-1b", 4, 1, 256, 512, 1168, True)]
+    cases += [("recurrentgemma-2b", 10, 1, 256, 2048, S, False)
+              for S in (1168, 3000)]
     for dtype in (torch.bfloat16, torch.float32):
         tol = SWA_TOL[dtype]
-        for S, KV, strided in cases:
+        for arch, H, KV, dh, w, S, strided in cases:
             q = torch.randn(1, S, H, dh, device="cuda", generator=gen).to(dtype)
             if strided:     # k and v as views into one packed tensor
                 kv = torch.randn(1, S, 2 * KV, dh, device="cuda",
@@ -189,87 +222,222 @@ def phase_swa() -> dict:
             got = ops.sliding_window_attention(q, k, v, w)
             want = swa_plain(q, k, v, w)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            bad = err > tol + tol * want.float().abs()
-            check(not bool(bad.any()), f"swa {dtype} S={S} KV={KV} "
-                  f"strided={strided}: max err {float(err.max())}")
-            worst = max(worst, float(err.max()))
-            print(f"    swa {str(dtype)[6:]} S={S} KV={KV}"
-                  f"{' strided' if strided else ''}: max abs err "
-                  f"{float(err.max()):.3g} (tol {tol})")
+            err = _close(f"swa {arch} {dtype} S={S} KV={KV} strided={strided}",
+                         got, want, tol)
+            worst = max(worst, err)
+            print(f"    swa {arch} {str(dtype)[6:]} S={S} H={H} KV={KV} w={w}"
+                  f"{' strided' if strided else ''}: max abs err {err:.3g} "
+                  f"(tol {tol})")
 
-    # time at the main path's longest prefill: S = 3 * (384 + 8) - 8 = 1168
-    S, KV = 1168, 1
-    q = torch.randn(1, S, H, dh, device="cuda", generator=gen,
-                    dtype=torch.bfloat16)
-    k, v = (torch.randn(1, S, KV, dh, device="cuda", generator=gen,
-                        dtype=torch.bfloat16) for _ in range(2))
-    ms = cuda_ms(lambda: ops.sliding_window_attention(q, k, v, w), iters=20)
-    plain_ms = cuda_ms(lambda: swa_plain(q, k, v, w), iters=10)
-    pos = torch.arange(S, device="cuda")
-    delta = pos[:, None] - pos[None, :]
-    band = (delta >= 0) & (delta < w)
-    qt = q.transpose(1, 2)
-    kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
-              for x in (k, v))
-    sdpa = F.scaled_dot_product_attention     # timed only; the port never calls it
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=band), iters=20)
-    lib_err = float((sdpa(qt, kt, vt, attn_mask=band).transpose(1, 2).float()
-                     - ops.sliding_window_attention(q, k, v, w).float()
-                     ).abs().max())
-    bound_ms, bound_by = swa_bound_ms(S, H, KV, dh, w, 2, BF16_FLOPS)
-    print(f"[3] swa: kernel == plain at every shape; at S={S} bf16 kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa+banded mask "
-          f"{library_ms:.4f} ms (max diff to kernel {lib_err:.3g}), bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+    # time at the main paths' longest prefill: S = 3 * (384 + 8) - 8 = 1168
+    rows = {}
+    for arch, H, w in (("gemma3-1b", 4, 512), ("recurrentgemma-2b", 10, 2048)):
+        S, KV, dh = 1168, 1, 256
+        q = torch.randn(1, S, H, dh, device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(1, S, KV, dh, device="cuda", generator=gen,
+                            dtype=torch.bfloat16) for _ in range(2))
+        ms = cuda_ms(lambda: ops.sliding_window_attention(q, k, v, w), iters=20)
+        plain_ms = cuda_ms(lambda: swa_plain(q, k, v, w), iters=10)
+        pos = torch.arange(S, device="cuda")
+        delta = pos[:, None] - pos[None, :]
+        band = (delta >= 0) & (delta < w)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+                  for x in (k, v))
+        sdpa = F.scaled_dot_product_attention   # timed only; the port never calls it
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=band), iters=20)
+        lib_err = float((sdpa(qt, kt, vt, attn_mask=band).transpose(1, 2).float()
+                         - ops.sliding_window_attention(q, k, v, w).float()
+                         ).abs().max())
+        bound_ms, bound_by = swa_bound_ms(S, H, KV, dh, w, 2, BF16_FLOPS)
+        print(f"[3] swa {arch} (H={H}, KV={KV}, w={w}): kernel == plain at "
+              f"every shape; at S={S} bf16 kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa+banded mask {library_ms:.4f} ms (max "
+              f"diff to kernel {lib_err:.3g}), bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        rows[arch] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+    # the kernel line keeps gemma3-1b's shapes, as in the first slice
     return {"name": "swa", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/swa.cu",
             "replaces": "src/repro/kernels/swa.py:27", "max_abs_err": worst,
+            **rows["gemma3-1b"]}
+
+
+def phase_rglru() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    W = 2560                                   # recurrentgemma-2b's lru width
+    worst, bitexact = 0.0, True
+    for B in (1, 2):
+        for S in (1, 100, 1168, 4096):
+            a = torch.rand(B, S, W, device="cuda", generator=gen)   # in (0, 1)
+            x = torch.randn(B, S, W, device="cuda", generator=gen)
+            got = ops.rglru_scan(a, x)
+            again = ops.rglru_scan(a, x)
+            want = rglru_plain(a, x)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"rglru B={B} S={S}: a repeat "
+                  f"gave other bits")
+            worst = max(worst, _close(f"rglru B={B} S={S}", got, want,
+                                      RGLRU_TOL))
+            bitexact = bitexact and torch.equal(got, want)
+    # time at the main path's longest prefill
+    B, S = 1, 1168
+    a = torch.rand(B, S, W, device="cuda", generator=gen)
+    x = torch.randn(B, S, W, device="cuda", generator=gen)
+    ms = cuda_ms(lambda: ops.rglru_scan(a, x), iters=50)
+    plain_ms = cuda_ms(lambda: rglru_plain(a, x), iters=3, warmup=1)
+    bytes_ms = 3 * B * S * W * 4 / HBM_BYTES_S * 1e3     # a, x in; y out
+    ops_ms = 2 * B * S * W / CORE_OPS * 1e3              # fp32 mul and add
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[4] rglru: kernel == plain within {RGLRU_TOL} at B in (1, 2), "
+          f"W={W}, S in (1, 100, 1168, 4096) (max abs err {worst:.3g}, bit "
+          f"for bit: {bitexact}); repeats bit-identical; at B={B} S={S} "
+          f"kernel {ms:.4f} ms ({W} threads), plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes)")
+    return {"name": "rglru", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru.cu",
+            "replaces": "src/repro/kernels/rglru.py:21", "max_abs_err": worst,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
 
 
-def phase_layers() -> None:
-    """One 5:1 group at full width in fp32: the kernel path on the card
-    against the plain path on the CPU, through the ring-buffer roll."""
-    full = get_config("gemma3-1b")
-    cfg = dataclasses.replace(full, n_layers=6, blocks=((full.blocks[0][0], 1),),
-                              dtype="float32")
+def _mlstm_inputs(S: int, dtype: torch.dtype, gen: torch.Generator):
+    """xlstm-1.3b's head shape (H 4, dh 512) at batch 1; q.k of unit
+    scale, as the model's dh**-0.5 scaling of both gives."""
+    H, dh = 4, 512
+    q, k = ((torch.randn(1, S, H, dh, device="cuda", generator=gen)
+             * dh ** -0.25).to(dtype) for _ in range(2))
+    v = torch.randn(1, S, H, dh, device="cuda", generator=gen).to(dtype)
+    it = torch.randn(1, S, H, device="cuda", generator=gen)
+    ft = torch.randn(1, S, H, device="cuda", generator=gen) + 2.0
+    return q, k, v, it, ft
+
+
+def mlstm_bound_ms(S: int, H: int, dh: int, c: int, elem: int):
+    """Per chunk and plane: q.k^T and W.V over the c(c+1)/2 causal pairs,
+    q.C and the C update over c x dh x dh, two flops a multiply-add; bytes
+    of q, k, v and h in ``elem`` bytes, the fp32 gates, C, n and m."""
+    pairs = c * (c + 1) // 2
+    flops = (S // c) * H * (4 * pairs * dh + 4 * c * dh * dh)
+    n_bytes = 4 * S * H * dh * elem + 2 * S * H * 4 + H * (dh * dh + dh + 1) * 4
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_mlstm() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    chunk = 256                                # xlstm-1.3b's mlstm_chunk
+    worst = {"h": 0.0, "state": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (64, 256, 300, 1168):
+            q, k, v, it, ft = _mlstm_inputs(S, dtype, gen)
+            # h through the JAX package's wrapper (pads ft with 30)...
+            got = ops.mlstm_chunkwise(q, k, v, it, ft, chunk)
+            # ...and h and the state through the model's entry, on inputs
+            # padded with zeros
+            c = min(chunk, S)
+            pad = (-S) % c
+            padded = [F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v)]
+            padded += [F.pad(g, (0, 0, 0, pad)) for g in (it, ft)]
+            h, state = ops.mlstm_chunkwise_state(*padded, c)
+            h2, state2 = ops.mlstm_chunkwise_state(*padded, c)
+            hp, statep = mlstm_plain(*padded, c)
+            want = mlstm_plain(*(F.pad(x, (0, 0, 0, 0, 0, pad))
+                                 for x in (q, k, v)),
+                               F.pad(it, (0, 0, 0, pad)),
+                               F.pad(ft, (0, 0, 0, pad), value=30.0), c)[0]
+            torch.cuda.synchronize()
+            check(torch.equal(h, h2) and all(torch.equal(x, y) for x, y
+                                             in zip(state, state2)),
+                  f"mlstm {dtype} S={S}: a repeat gave other bits")
+            tol = MLSTM_TOL[dtype]
+            errs = [_close(f"mlstm h (ft pad 30) {dtype} S={S}", got,
+                           want[:, :S], tol),
+                    _close(f"mlstm h {dtype} S={S}", h, hp, tol)]
+            state_errs = [_close(f"mlstm {name} {dtype} S={S}", x, y,
+                                 MLSTM_STATE_TOL)
+                          for name, x, y in zip("Cnm", state, statep)]
+            worst["h"] = max(worst["h"], *errs)
+            worst["state"] = max(worst["state"], *state_errs)
+            print(f"    mlstm {str(dtype)[6:]} S={S} (chunk {c}, pad {pad}): "
+                  f"h max abs err {max(errs):.3g} (tol {tol}), C/n/m "
+                  f"{', '.join(f'{e:.3g}' for e in state_errs)} (tol "
+                  f"{MLSTM_STATE_TOL}); repeat bit-identical")
+    # time at the main path's longest prefill: 916 tokens, padded to 1024
+    S = 1024
+    q, k, v, it, ft = _mlstm_inputs(S, torch.bfloat16, gen)
+    ms = cuda_ms(lambda: ops.mlstm_chunkwise_state(q, k, v, it, ft, chunk),
+                 iters=10)
+    plain_ms = cuda_ms(lambda: mlstm_plain(q, k, v, it, ft, chunk), iters=5)
+    bound_ms, bound_by = mlstm_bound_ms(S, 4, 512, chunk, 2)
+    print(f"[5] mlstm: kernel == plain (h and C, n, m) at H=4, dh=512, chunk "
+          f"{chunk}, S in (64, 256, 300, 1168), bf16 and fp32; repeats "
+          f"bit-identical; at S={S} bf16 kernel {ms:.4f} ms "
+          f"({4 * 512 // 32} blocks), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return {"name": "mlstm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mlstm.cu",
+            "replaces": "src/repro/kernels/mlstm.py:24",
+            "max_abs_err": max(worst.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def compare_layers(arch: str, S: int, tol: float, expect: dict) -> None:
+    """One group of ``arch`` at full width in fp32: the kernel path on the
+    card against the plain path on the CPU, logits and every layer's
+    cache or state.  ``expect`` is the kernel launches the group makes."""
+    full = get_config(arch)
+    pattern = full.blocks[0][0]
+    cfg = dataclasses.replace(full, n_layers=len(pattern),
+                              blocks=((pattern, 1),), dtype="float32")
     gpu = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
                       device="cuda")
     cpu = Transformer(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
-    S, max_seq = 1168, 1176
+    max_seq = S + 8
     toks = torch.randint(0, cfg.vocab, (1, S),
                          generator=torch.Generator().manual_seed(3))
-    before = ops.launches["swa"]
+    ops.reset_launches()
     logits_g, caches_g = prefill(gpu, toks.cuda(), max_seq=max_seq)
     torch.cuda.synchronize()
-    swa_launches = ops.launches["swa"] - before
-    check(swa_launches == 5, f"5 window layers launched swa {swa_launches}x")
+    got = {k: n for k, n in ops.launches.items() if n}
+    check(got == expect, f"{arch} group launched {got}, expected {expect}")
     logits_c, caches_c = prefill(cpu, toks, max_seq=max_seq)
-    tol = 1e-3    # fp32 sums in another order over 6 layers of width 1152
-    err = {}
-    pairs = [("logits", logits_g, logits_c)] + [
-        (f"cache[{i}].{k}", cg[k], cc[k])
-        for i, (cg, cc) in enumerate(zip(caches_g[0], caches_c[0]))
-        for k in ("k", "v", "pos")]
-    for name, g, c in pairs:
-        g, c = g.cpu().float(), c.float()
-        check(g.shape == c.shape and bool(torch.isfinite(g).all()),
-              f"{name}: shape or non-finite values")
-        check(torch.allclose(g, c, rtol=tol, atol=tol),
-              f"{name}: max abs err {float((g - c).abs().max())}")
-        err[name] = float((g - c).abs().max())
-    print(f"[4] gemma3-1b 6 layers fp32, S={S}: card == CPU within {tol} "
-          f"(logits max abs err {err['logits']:.3g}; worst cache "
-          f"{max(v for k, v in err.items() if k != 'logits'):.3g})")
+    err = {"logits": _close(f"{arch} logits", logits_g.cpu(), logits_c, tol)}
+    for i, (cg, cc) in enumerate(zip(caches_g[0], caches_c[0])):
+        for k in sorted(cg):
+            err[f"[{i}].{k}"] = _close(f"{arch} state[{i}].{k}", cg[k].cpu(),
+                                       cc[k], tol)
+    worst = max(err, key=lambda k: err[k] if k != "logits" else -1)
+    print(f"    {arch} {cfg.n_layers} layers fp32, S={S}: card == CPU within "
+          f"{tol} (logits max abs err {err['logits']:.3g}; worst state "
+          f"{worst} {err[worst]:.3g}); launches {got}")
 
 
-def phase_serve(card_line: str) -> dict:
-    """Returns the kernel launch counts of the main path."""
-    cfg = get_config("gemma3-1b")
-    sessions, turns, prompt_len, gen_len = 2, 3, 384, 8
+def phase_layers() -> None:
+    # fp32 sums in another order over a few layers at full width, and fp32
+    # sin/cos at angles up to about 1.2e3 rad in RoPE
+    tol = 1e-3
+    compare_layers("gemma3-1b", 1168, tol, {"swa": 5})
+    compare_layers("recurrentgemma-2b", 600, tol, {"rglru": 2, "swa": 1})
+    # 300 tokens pad to 512: the padding quirk runs on the card
+    compare_layers("xlstm-1.3b", 300, tol, {"mlstm": 3})
+    print(f"[6] full-width layers in fp32: card == CPU within {tol} for one "
+          f"group of each arch")
+
+
+def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
+                prompt_len: int, gen_len: int, kernels, profile_turn: int
+                ) -> dict:
+    """Serves ``arch`` at full width and depth through 3 replicas; returns
+    the kernel launch counts of this path."""
+    cfg = get_config(arch)
     max_seq = turns * (prompt_len + gen_len) + 8
     serve.set_deterministic()
     rng = np.random.default_rng(0)
@@ -291,49 +459,52 @@ def phase_serve(card_line: str) -> dict:
             wall = time.perf_counter() - t1
             check(toks is not None and len(toks) == gen_len
                   and all(0 <= x < cfg.vocab for x in toks),
-                  f"turn {t} session {s}: bad tokens {toks}")
+                  f"{arch} turn {t} session {s}: bad tokens {toks}")
             reqs.append({"turn": t, "session": s, "tokens": toks,
                          "smr_latency_us": lat, "wall_ms": wall * 1e3})
     launches = dict(ops.launches)
     torch.cuda.synchronize()
     calls = list(decoder.timings)
 
-    check(all(n > 0 for n in launches.values()),
-          f"the main path skipped a kernel: {launches}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"{arch}: the main path skipped a kernel: {launches}")
     snaps = [r.app.snapshot() for r in server.cluster.replicas]
-    check(snaps[0] == snaps[1] == snaps[2], "replica snapshots differ")
+    check(snaps[0] == snaps[1] == snaps[2], f"{arch}: replica snapshots differ")
     hist = dict(snaps[0])
     check(all(len(h) == turns * (prompt_len + gen_len) for h in hist.values()),
-          "session histories have the wrong length")
+          f"{arch}: session histories have the wrong length")
     # the same greedy decode outside the replicas gives the same tokens
     check(decoder("s0", prompts[0][0], gen_len) == reqs[0]["tokens"],
-          "decode outside the server disagrees with the replicas")
+          f"{arch}: decode outside the server disagrees with the replicas")
 
-    busy = profile_decode(decoder, list(hist["s0"])[:2 * (prompt_len + gen_len)
-                                                    + prompt_len], gen_len)
+    n_prof = profile_turn * (prompt_len + gen_len) + prompt_len
+    busy = profile_decode(decoder, list(hist["s0"])[:n_prof], gen_len)
     prefill_ms = {}
     for n_prompt, pf_s, _ in calls:
         prefill_ms.setdefault(n_prompt, []).append(pf_s * 1e3)
     decode_tok_s = [(gen_len - 1) / dec_s for _, _, dec_s in calls]
     for r in reqs:
-        print(f"    turn {r['turn']} s{r['session']}: smr_latency "
+        print(f"    {arch} turn {r['turn']} s{r['session']}: smr_latency "
               f"{r['smr_latency_us']:.1f} us (virtual), wall "
               f"{r['wall_ms']:.1f} ms [{card_line}]")
     for n_prompt, v in sorted(prefill_ms.items()):
-        print(f"    prefill of {n_prompt} tokens: median {np.median(v):.2f} ms "
-              f"over {len(v)} calls [{card_line}]")
-    print(f"    decode: median {np.median(decode_tok_s):.1f} tokens/s "
+        print(f"    {arch} prefill of {n_prompt} tokens: median "
+              f"{np.median(v):.2f} ms over {len(v)} calls [{card_line}]")
+    print(f"    {arch} decode: median {np.median(decode_tok_s):.1f} tokens/s "
           f"(batch 1) [{card_line}]")
     if busy.get("device_ms"):
-        print(f"    one decode_fn call (prefill {busy['prompt']} + {gen_len} "
-              f"tokens) under torch.profiler: {busy['kernels']} kernels, device "
-              f"busy {busy['device_ms']:.1f} of {busy['wall_ms']:.1f} ms wall "
+        print(f"    {arch} one decode_fn call (prefill {busy['prompt']} + "
+              f"{gen_len} tokens) under torch.profiler: {busy['kernels']} "
+              f"kernels, device busy {busy['device_ms']:.1f} of "
+              f"{busy['wall_ms']:.1f} ms wall "
               f"({100 * busy['busy_share']:.1f}%) [{card_line}]")
     else:
-        print(f"    device busy share not measured: {busy}")
-    print(f"[5] gemma3-1b 26 layers bf16 served by 3 replicas: {len(reqs)} "
-          f"requests, replicas identical, weights {digest:#010x}, launches "
-          f"{launches}, set-up {setup_s:.1f} s")
+        print(f"    {arch} device busy share not measured: {busy}")
+    print(f"[7] {arch} {cfg.n_layers} layers bf16 served by 3 replicas: "
+          f"{len(reqs)} requests, replicas identical, weights {digest:#010x}, "
+          f"launches {launches}, set-up {setup_s:.1f} s")
+    del server, decoder
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -365,6 +536,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.cuda.set_device(0)
     # fp32 comparisons against the plain versions run in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -378,15 +550,29 @@ def main() -> int:
                        device="cuda")
     fp = phase_fingerprint(full)
     del full
-    swa = phase_swa()
+    rows = [phase_swa(), fp, phase_rglru(), phase_mlstm()]
     phase_layers()
-    launches = phase_serve(card_line)
+    # the main paths: (arch, sessions, turns, prompt, generated, kernels,
+    # turn whose prefill is profiled)
+    paths = [("gemma3-1b", 2, 3, 384, 8, ("swa", "fingerprint"), 2),
+             ("recurrentgemma-2b", 2, 3, 384, 8,
+              ("rglru", "swa", "fingerprint"), 2),
+             ("xlstm-1.3b", 1, 3, 300, 8, ("mlstm", "fingerprint"), 0)]
+    launches = {row["name"]: 0 for row in rows}
+    for arch, sessions, turns, prompt_len, gen_len, kernels, prof in paths:
+        got = phase_serve(card_line, arch, sessions, turns, prompt_len,
+                          gen_len, kernels, prof)
+        for name, n in got.items():
+            launches[name] += n
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel was never launched on the main paths: {launches}")
     kernels = [dict({k: row[k] for k in ("name", "route", "source", "replaces")},
                     launches=launches[row["name"]],
                     **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms")})
-               for row in (swa, fp)]
+               for row in rows]
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Crossing from the JAX package's parameters to the port's model.
 
 The port keeps JAX's layout (weights ``(in, out)``, the pytree's names,
-per-group stacking), so conversion is a plain copy.  numpy has no bf16 of
+per-group stacking) and each leaf's dtype (the RG-LRU's ``lam`` stays fp32
+in a bf16 model), so conversion is a plain copy.  numpy has no bf16 of
 its own: a bf16 array (ml_dtypes' ``bfloat16``) crosses as an int16 view and
 is viewed back as ``torch.bfloat16``, which keeps every bit.
 """

@@ -10,6 +10,8 @@ from repro_torch.models.common import ModelConfig
 
 ARCHS: Dict[str, str] = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 

@@ -1,0 +1,131 @@
+"""Chunkwise mLSTM: the CUDA kernel and its plain version.
+
+Both take q, k, v: (B, S, H, dh) of one dtype and the gate pre-activations
+it, ft: (B, S, H) in fp32, with S a multiple of ``chunk``, and return
+h: (B, S, H, dh) in q's dtype and the final state (C (B, H, dh, dh),
+n (B, H, dh), m (B, H)) in fp32, carried from C = 0, n = 0, m = -1e30.
+Neither pads: the callers do (``ops.mlstm_chunkwise`` as the JAX package's
+``ops`` does, the model as ``mlstm_train`` does).  The kernel
+(``csrc/mlstm.cu``) replaces the TPU kernel
+``src/repro/kernels/mlstm.py:_mlstm_kernel``, which keeps the state in
+VMEM and never writes it out; the model's decode needs it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import cuda
+
+NEG_INF = -1e30
+MAX_DH = 512
+MAX_CHUNK = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda.load("mlstm")
+    fn = lib.mlstm_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               it: torch.Tensor, ft: torch.Tensor, chunk: int
+               ) -> Tuple[torch.Tensor, State]:
+    """Launch the kernel on CUDA tensors.  q, k and v are read in place
+    through their strides; h and the state are new tensors."""
+    B, S, H, dh = q.shape
+    if not all(x.is_cuda and x.device == q.device for x in (q, k, v, it, ft)):
+        raise ValueError("mlstm_cuda takes CUDA tensors on one device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the mLSTM kernel takes f32 or bf16 q/k/v of one "
+                        f"dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
+    if it.dtype != torch.float32 or ft.dtype != torch.float32:
+        raise TypeError(f"the mLSTM kernel takes fp32 gates, not "
+                        f"{it.dtype}/{ft.dtype}")
+    if (k.shape != q.shape or v.shape != q.shape or it.shape != (B, S, H)
+            or ft.shape != it.shape):
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} it{tuple(it.shape)} "
+                         f"ft{tuple(ft.shape)}")
+    if not (1 <= chunk <= MAX_CHUNK and S >= chunk and S % chunk == 0
+            and dh <= MAX_DH):
+        raise ValueError(f"the mLSTM kernel takes 1 <= chunk <= {MAX_CHUNK}, "
+                         f"S a positive multiple of chunk and dh <= {MAX_DH}, "
+                         f"not chunk={chunk}, S={S}, dh={dh}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("the mLSTM kernel reads rows with unit head-dim stride")
+    if not (it.is_contiguous() and ft.is_contiguous()):
+        raise ValueError("the mLSTM kernel reads contiguous gates")
+    lib = _lib()
+    dev = q.device
+    h = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
+    C = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)
+    n = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
+    m = torch.empty((B, H), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.mlstm_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),
+        ft.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
+        m.data_ptr(), _DTYPES[q.dtype], B, S, H, dh, chunk,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), stream)
+    cuda.check(status, "mlstm")
+    cuda.launches["mlstm"] += 1
+    return h, (C, n, m)
+
+
+def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                it: torch.Tensor, ft: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, State]:
+    """The kernel's plain PyTorch version, on any device: the chunk body of
+    the JAX package's ``mlstm_train`` for every plane at once, in fp32."""
+    B, S, H, dh = q.shape
+    c = chunk
+    if S % c:
+        raise ValueError(f"S={S} is not a multiple of chunk={c}")
+    dev = q.device
+    qf, kf, vf = q.float(), k.float(), v.float()
+    C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=dev)
+    n = torch.zeros((B, H, dh), dtype=torch.float32, device=dev)
+    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
+    causal = torch.ones((c, c), dtype=torch.bool, device=dev).tril()
+    hs = []
+    for c0 in range(0, S, c):
+        qi, ki, vi = (x[:, c0:c0 + c] for x in (qf, kf, vf))  # (B, c, H, dh)
+        iti = it[:, c0:c0 + c].float()                         # (B, c, H)
+        csum = torch.cumsum(F.logsigmoid(ft[:, c0:c0 + c].float()), dim=1)
+        tot = csum[:, -1]                                      # (B, H)
+        # a[b, t, s, h] = csum_t - csum_s + i_s for s <= t
+        a = csum[:, :, None, :] - csum[:, None, :, :] + iti[:, None, :, :]
+        a = torch.where(causal[None, :, :, None], a, float("-inf"))
+        b = csum + m[:, None, :]                               # (B, c, H)
+        m_row = torch.maximum(a.amax(dim=2), b)
+        D = torch.exp(a - m_row[:, :, None, :])
+        sq = torch.exp(b - m_row)
+        w = torch.einsum("bthd,bshd->btsh", qi, ki) * D
+        num = (torch.einsum("btsh,bshd->bthd", w, vi)
+               + torch.einsum("bthd,bhde->bthe", qi, C) * sq[..., None])
+        n_intra = w.sum(dim=2)
+        n_inter = torch.einsum("bthd,bhd->bth", qi, n) * sq
+        denom = torch.clamp((n_intra + n_inter).abs(), min=1.0)
+        hs.append((num / denom[..., None]).to(q.dtype))
+        # carry the state to the chunk's end
+        m_next = torch.maximum(tot + m, (tot[:, None] - csum + iti).amax(dim=1))
+        dec = torch.exp(tot + m - m_next)
+        w_s = torch.exp(tot[:, None] - csum + iti - m_next[:, None])
+        C = C * dec[..., None, None] + torch.einsum(
+            "bshd,bshe->bhde", ki * w_s[..., None], vi)
+        n = n * dec[..., None] + torch.einsum("bsh,bshd->bhd", w_s, ki)
+        m = m_next
+    return torch.cat(hs, dim=1), (C, n, m)

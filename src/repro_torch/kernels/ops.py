@@ -7,13 +7,19 @@ version for a CPU tensor; there is no fallback from one to the other.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.cuda import launches, reset_launches
 from repro_torch.kernels.fingerprint import fingerprint_cuda, fingerprint_plain
+from repro_torch.kernels.mlstm import State, mlstm_cuda, mlstm_plain
+from repro_torch.kernels.rglru import rglru_cuda, rglru_plain
 from repro_torch.kernels.swa import swa_cuda, swa_plain
 
-__all__ = ["fingerprint", "launches", "reset_launches",
+__all__ = ["fingerprint", "launches", "mlstm_chunkwise",
+           "mlstm_chunkwise_state", "reset_launches", "rglru_scan",
            "sliding_window_attention"]
 
 
@@ -34,6 +40,45 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     if _on_cuda(q, k, v):
         return swa_cuda(q, k, v, window)
     return swa_plain(q, k, v, window)
+
+
+def mlstm_chunkwise_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          it: torch.Tensor, ft: torch.Tensor, chunk: int
+                          ) -> Tuple[torch.Tensor, State]:
+    """Chunkwise mLSTM with its final state, for a sequence the caller has
+    padded to a multiple of ``chunk`` (the model pads as ``mlstm_train``
+    does).  q/k/v: (B, S, H, dh); it/ft: (B, S, H) fp32 -> h (B, S, H, dh)
+    and (C, n, m) in fp32."""
+    if _on_cuda(q, k, v, it, ft):
+        return mlstm_cuda(q, k, v, it, ft, chunk)
+    return mlstm_plain(q, k, v, it, ft, chunk)
+
+
+def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    it: torch.Tensor, ft: torch.Tensor,
+                    chunk: int = 256) -> torch.Tensor:
+    """Chunkwise mLSTM as ``repro.kernels.ops.mlstm_chunkwise``: pads S to a
+    multiple of min(chunk, S) with zero q/k/v and input gates and forget
+    gates of 30 (forget ≈ 1 on padding).  q/k/v: (B, S, H, dh);
+    it/ft: (B, S, H) -> h (B, S, H, dh)."""
+    S = q.shape[1]
+    c = min(chunk, S)
+    pad = (-S) % c
+    it, ft = it.float().contiguous(), ft.float().contiguous()
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+        it = F.pad(it, (0, 0, 0, pad))
+        ft = F.pad(ft, (0, 0, 0, pad), value=30.0)
+    h, _ = mlstm_chunkwise_state(q, k, v, it, ft, c)
+    return h[:, :S]
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Gated linear recurrence y_t = a_t·y_{t-1} + x_t from y = 0, in fp32.
+    a/x: (B, S, W) fp32 -> y (B, S, W) fp32."""
+    if _on_cuda(a, x):
+        return rglru_cuda(a, x)
+    return rglru_plain(a, x)
 
 
 def fingerprint(x: torch.Tensor) -> int:

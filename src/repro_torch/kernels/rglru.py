@@ -1,0 +1,59 @@
+"""RG-LRU gated linear recurrence: the CUDA kernel and its plain version.
+
+y_t = a_t · y_{t-1} + x_t over a, x: (B, S, W), elementwise over the W
+lanes, from y = 0, in fp32; the output is fp32.  The kernel
+(``csrc/rglru.cu``) replaces the TPU kernel
+``src/repro/kernels/rglru.py:_rglru_kernel``; it rounds each product and
+each sum apart, as the plain version does, so the two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda.load("rglru")
+    fn = lib.rglru_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def rglru_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns a new (B, S, W) fp32
+    tensor."""
+    if not (a.is_cuda and x.device == a.device):
+        raise ValueError("rglru_cuda takes CUDA tensors on one device")
+    if a.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"the RG-LRU kernel takes fp32 a and x, not "
+                        f"{a.dtype}/{x.dtype}")
+    if a.dim() != 3 or x.shape != a.shape:
+        raise ValueError(f"bad shapes a{tuple(a.shape)} x{tuple(x.shape)}")
+    if not (a.is_contiguous() and x.is_contiguous()):
+        raise ValueError("the RG-LRU kernel reads contiguous a and x")
+    B, S, W = a.shape
+    lib = _lib()
+    y = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    status = lib.rglru_launch(a.data_ptr(), x.data_ptr(), y.data_ptr(),
+                              B, S, W, stream)
+    cuda.check(status, "rglru")
+    cuda.launches["rglru"] += 1
+    return y
+
+
+def rglru_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain PyTorch version, on any device: the sequential
+    recurrence in fp32, one step at a time."""
+    a, x = a.float(), x.float()
+    y = torch.empty_like(a)
+    carry = torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        carry = a[:, t] * carry + x[:, t]
+        y[:, t] = carry
+    return y

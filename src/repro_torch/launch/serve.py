@@ -1,6 +1,7 @@
 """Serving launcher: a uBFT-replicated token server on the port's model.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch gemma3-1b|recurrentgemma-2b|xlstm-1.3b \\
       [--smoke] [--device cpu] [--requests 10] [--batch 4]
 
 Three replicas hold the same model (one weight copy, attested by its
@@ -21,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.models.common import ModelConfig, Transformer, init_params
 from repro_torch.models.transformer import decode_step, prefill
 from repro_torch.runtime.attest import fingerprint_tree
@@ -85,7 +86,7 @@ def build_server(cfg: ModelConfig, device: torch.device, max_seq: int,
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--arch", default="gemma3-1b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--batch", type=int, default=4, help="client sessions")

@@ -2,16 +2,17 @@
 
 A :class:`ModelConfig`'s ``blocks`` field is a *pattern program*: a list of
 (pattern, repeats) groups, where a pattern is a tuple of :class:`LayerSpec`
-(gemma3: five sliding-window layers to one global).  Parameters keep the
-JAX package's layout so that converting them is a plain copy: weights are
-``(in, out)`` and used as ``x @ W``, and each pattern position holds its
-``reps`` layers stacked on a leading axis.
+(gemma3: five sliding-window layers to one global; recurrentgemma: two
+RG-LRU layers to one local attention; xLSTM: three mLSTM blocks to one
+sLSTM).  Parameters keep the JAX package's layout so that converting them
+is a plain copy: weights are ``(in, out)`` and used as ``x @ W``, and each
+pattern position holds its ``reps`` layers stacked on a leading axis.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,8 +24,9 @@ from torch import nn
 @dataclass(frozen=True)
 class LayerSpec:
     """One layer in the pattern program."""
-    kind: str                      # "attn" (the only kind this port runs)
+    kind: str                      # "attn" | "mlstm" | "slstm" | "rglru"
     window: Optional[int] = None   # attention window (None = full/causal)
+    has_ffn: bool = True           # xLSTM blocks carry their own projections
 
 
 @dataclass(frozen=True)
@@ -45,6 +47,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     q_chunk: int = 512
+    mlstm_chunk: int = 256
 
     @property
     def dh(self) -> int:
@@ -64,16 +67,18 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: pattern program has {len(self.layer_list())} "
                 f"layers, config says {self.n_layers}")
-        for spec in self.layer_list():
-            if spec.kind != "attn":
-                raise NotImplementedError(
-                    f"{self.name}: the port runs attention layers only, "
-                    f"not {spec}")
 
 
 # ---------------------------------------------------------------------------
 # Shared primitives
 # ---------------------------------------------------------------------------
+def weak_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python scalar as JAX applies it to an array: a weakly typed scalar,
+    rounded to the array's dtype first (torch would keep it in fp32 for a
+    bf16 array)."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
@@ -107,33 +112,65 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def _layer_shapes(cfg: ModelConfig) -> dict:
-    """Per-layer (unstacked) shape and init scale of every attention-layer
-    parameter; a scale of None means zeros (the RMSNorm offsets)."""
+@dataclass(frozen=True)
+class Leaf:
+    """One parameter of a layer (unstacked): its shape, its init (normal
+    noise times ``scale``, or the constant ``fill`` where ``scale`` is None)
+    and its dtype (None: the model's)."""
+    shape: Tuple[int, ...]
+    scale: Optional[float] = None
+    fill: float = 0.0
+    dtype: Optional[torch.dtype] = None
+
+
+def layer_leaves(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Leaf]:
+    """The parameters of one layer of ``spec``'s kind, as
+    ``repro.models.common.init_layer_params`` makes them (dense FFN only)."""
     D, dh, H, KV, F = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     s_in = D ** -0.5
-    shapes = {
-        "ln1": ((D,), None),
-        "wq": ((D, H * dh), s_in),
-        "wk": ((D, KV * dh), s_in),
-        "wv": ((D, KV * dh), s_in),
-        "wo": ((H * dh, D), (H * dh) ** -0.5),
-        "ln2": ((D,), None),
-        "w_gate": ((D, F), s_in),
-        "w_up": ((D, F), s_in),
-        "w_down": ((F, D), F ** -0.5),
-    }
-    if cfg.qk_norm:
-        shapes["q_norm"] = ((dh,), None)
-        shapes["k_norm"] = ((dh,), None)
-    return shapes
+    leaves = {"ln1": Leaf((D,))}
+    if spec.kind == "attn":
+        leaves.update(
+            wq=Leaf((D, H * dh), s_in), wk=Leaf((D, KV * dh), s_in),
+            wv=Leaf((D, KV * dh), s_in),
+            wo=Leaf((H * dh, D), (H * dh) ** -0.5))
+        if cfg.qk_norm:
+            leaves.update(q_norm=Leaf((dh,)), k_norm=Leaf((dh,)))
+    elif spec.kind == "mlstm":
+        leaves.update(
+            wq=Leaf((D, H * dh), s_in), wk=Leaf((D, H * dh), s_in),
+            wv=Leaf((D, H * dh), s_in), wi=Leaf((D, H), s_in),
+            wf=Leaf((D, H), s_in),
+            bf=Leaf((H,), fill=3.0),          # forget bias: remember by default
+            wo=Leaf((H * dh, D), (H * dh) ** -0.5),
+            up=Leaf((D, 2 * D), s_in), down=Leaf((D, D), D ** -0.5))
+    elif spec.kind == "slstm":
+        hd = D // H
+        leaves.update(
+            wz=Leaf((D, D), s_in), wi=Leaf((D, D), s_in),
+            wf=Leaf((D, D), s_in), wo_gate=Leaf((D, D), s_in),
+            rz=Leaf((H, hd, hd), s_in), wo=Leaf((D, D), D ** -0.5),
+            up=Leaf((D, 2 * D), s_in), down=Leaf((D, D), D ** -0.5))
+    elif spec.kind == "rglru":
+        W = D                                 # lru width = d_model
+        leaves.update(
+            w_in=Leaf((D, 2 * W), s_in), conv=Leaf((4, W), 0.1),
+            wa=Leaf((W, W), W ** -0.5), wx=Leaf((W, W), W ** -0.5),
+            lam=Leaf((W,), 1.0, dtype=torch.float32),
+            w_out=Leaf((W, D), W ** -0.5))
+    else:
+        raise ValueError(spec.kind)
+    if spec.has_ffn and spec.kind in ("attn", "rglru"):
+        leaves.update(ln2=Leaf((D,)), w_gate=Leaf((D, F), s_in),
+                      w_up=Leaf((D, F), s_in), w_down=Leaf((F, D), F ** -0.5))
+    return leaves
 
 
 class Transformer(nn.Module):
-    """Parameters of an attention-only stack with a tied head, named as
-    the JAX pytree: ``embed``, ``out_norm`` and ``groups[g][pos][name]``
-    with a leading ``reps`` axis.  The forward passes are the plain
-    functions of ``repro_torch.models.transformer``.
+    """Parameters of a stack of attention and recurrent layers with a tied
+    head, named as the JAX pytree: ``embed``, ``out_norm`` and
+    ``groups[g][pos][name]`` with a leading ``reps`` axis.  The forward
+    passes are the plain functions of ``repro_torch.models.transformer``.
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -142,18 +179,19 @@ class Transformer(nn.Module):
         self.cfg = cfg
         dt = cfg.tdtype()
 
-        def param(*shape):
-            return nn.Parameter(torch.zeros(shape, dtype=dt, device=device),
+        def param(*shape, dtype=None):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype or dt,
+                                            device=device),
                                 requires_grad=False)
 
         self.embed = param(cfg.vocab, cfg.d_model)
         self.out_norm = param(cfg.d_model)
-        shapes = _layer_shapes(cfg)
         self.groups = nn.ModuleList(
             nn.ModuleList(
-                nn.ParameterDict({k: param(reps, *shape)
-                                  for k, (shape, _) in shapes.items()})
-                for _ in pattern)
+                nn.ParameterDict({
+                    k: param(reps, *leaf.shape, dtype=leaf.dtype)
+                    for k, leaf in layer_leaves(cfg, spec).items()})
+                for spec in pattern)
             for pattern, reps in cfg.blocks)
 
     def param_leaves(self) -> Iterator[torch.Tensor]:
@@ -169,18 +207,24 @@ class Transformer(nn.Module):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Transformer:
-    """Random parameters with the JAX package's scales (normal · scale,
-    drawn in fp32 and cast; norms zero).  The numbers differ from
-    ``jax.random``'s: tests that compare the two convert the JAX init with
+    """Random parameters with the JAX package's inits (normal · scale,
+    drawn in fp32 and cast to the leaf's dtype; norms zero; the mLSTM
+    forget bias 3.0).  The numbers differ from ``jax.random``'s: tests that
+    compare the two convert the JAX init with
     ``repro_torch.bridge.params_from_jax`` instead."""
     model = Transformer(cfg, device=device)
-    scales = {k: s for k, (_, s) in _layer_shapes(cfg).items()}
-    scales["embed"] = cfg.d_model ** -0.5
-    for name, p in model.named_parameters():
-        scale = scales.get(name.rsplit(".", 1)[-1])
-        if scale is None:
-            continue
+
+    def draw(p: torch.Tensor, scale: float) -> None:
         noise = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                             device=p.device)
         p.copy_(noise * scale)
+
+    draw(model.embed, cfg.d_model ** -0.5)
+    for (pattern, _), group in zip(cfg.blocks, model.groups):
+        for spec, pos in zip(pattern, group):
+            for name, leaf in layer_leaves(cfg, spec).items():
+                if leaf.scale is not None:
+                    draw(pos[name], leaf.scale)
+                elif leaf.fill:
+                    pos[name].fill_(leaf.fill)
     return model

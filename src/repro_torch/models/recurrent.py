@@ -1,0 +1,242 @@
+"""Recurrent blocks: xLSTM (mLSTM + sLSTM) and RG-LRU (RecurrentGemma),
+ported from ``repro.models.recurrent``.
+
+Prefill forms:
+* **mLSTM** — the chunkwise-parallel form; the chunk loop is the mLSTM
+  kernel (``ops.mlstm_chunkwise_state``), which also returns the state that
+  decode starts from.
+* **sLSTM** — inherently sequential (recurrent gate connections): a Python
+  loop over time with the input projections hoisted out of it.  It has no
+  kernel.
+* **RG-LRU** — gated linear recurrence: the RG-LRU kernel
+  (``ops.rglru_scan``) in place of JAX's ``associative_scan``, after a short
+  causal conv1d.
+
+Decode forms: single-step state updates that return new state tensors; the
+state replaces the KV cache.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import ModelConfig, rms_norm, weak_scalar
+
+State = Dict[str, torch.Tensor]
+NEG_INF = -1e30
+
+
+def _gated_mlp(p: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+    u, g = torch.chunk(h @ p["up"], 2, dim=-1)
+    return (F.silu(g) * u) @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+def _mlstm_gates(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
+    """Returns (q, k, v, i_tilde, f_tilde) for x: (B, S, D)."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.dh
+    y = x @ p["wq"]
+    scale = weak_scalar(dh ** -0.5, y)
+    q = y.reshape(B, S, H, dh) * scale
+    k = (x @ p["wk"]).reshape(B, S, H, dh) * scale
+    v = (x @ p["wv"]).reshape(B, S, H, dh)
+    it = (x @ p["wi"]).float()                               # (B, S, H)
+    ft = (x @ p["wf"]).float() + p["bf"].float()
+    return q, k, v, it, ft
+
+
+def mlstm_train(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                chunk: int = 256) -> Tuple[torch.Tensor, State]:
+    """Chunkwise-parallel mLSTM. x: (B, S, D) -> ((B, S, H·dh), state).
+
+    As in the JAX package, the *input* is zero-padded to a multiple of
+    min(chunk, S) before the gate projections, so a padded step has
+    q = k = v = 0, input gate 0 and forget gate ``bf``; the final state
+    includes those steps."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.dh
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    q, k, v, it, ft = _mlstm_gates(cfg, p, x)
+    h, (C, n, m) = ops.mlstm_chunkwise_state(q, k, v, it, ft, c)
+    h = h.reshape(B, S + pad, H * dh)[:, :S]
+    return h, {"C": C, "n": n, "m": m}
+
+
+def mlstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+                ) -> Tuple[torch.Tensor, State]:
+    """Full mLSTM residual block: norm → mLSTM → out-proj → gated MLP.
+    Returns (output, state)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    inner, state = mlstm_train(cfg, p, h, chunk=cfg.mlstm_chunk)
+    y = inner @ p["wo"] + _gated_mlp(p, h)
+    return x + y, state
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int, device=None) -> State:
+    H, dh = cfg.n_heads, cfg.dh
+    f32 = torch.float32
+    return {"C": torch.zeros((batch, H, dh, dh), dtype=f32, device=device),
+            "n": torch.zeros((batch, H, dh), dtype=f32, device=device),
+            "m": torch.full((batch, H), NEG_INF, dtype=f32, device=device)}
+
+
+def mlstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               state: State) -> Tuple[torch.Tensor, State]:
+    """Single decode step. x: (B, 1, D)."""
+    B = x.shape[0]
+    H, dh = cfg.n_heads, cfg.dh
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v, it, ft = _mlstm_gates(cfg, p, h)
+    q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()  # (B, H, dh)
+    it, ft = it[:, 0], ft[:, 0]                                  # (B, H)
+    lf = F.logsigmoid(ft)
+    m_new = torch.maximum(lf + state["m"], it)
+    fd = torch.exp(lf + state["m"] - m_new)[..., None]
+    iw = torch.exp(it - m_new)[..., None]
+    C = state["C"] * fd[..., None] + (iw[..., None] * k[..., :, None]
+                                      * v[..., None, :])
+    n = state["n"] * fd + iw * k
+    num = torch.einsum("bhd,bhde->bhe", q, C)
+    den = torch.clamp(torch.einsum("bhd,bhd->bh", q, n).abs()[..., None],
+                      min=1.0)
+    y = (num / den).to(x.dtype).reshape(B, 1, H * dh) @ p["wo"]
+    y = y + _gated_mlp(p, h)
+    return x + y, {"C": C, "n": n, "m": m_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+def _slstm_cell(p, zt, it, ft, ot, c_prev, h_prev, m_prev):
+    """One step of the sLSTM cell (per-head recurrent z connection)."""
+    zr = torch.einsum("bhd,hde->bhe", h_prev, p["rz"])
+    z = torch.tanh(zt + zr)
+    m_t = torch.maximum(ft + m_prev, it)
+    ig = torch.exp(it - m_t)
+    fg = torch.exp(ft + m_prev - m_t)
+    c_t = fg * c_prev + ig * z.float()
+    h_t = (torch.sigmoid(ot.float()) * torch.tanh(c_t)).to(h_prev.dtype)
+    return c_t, h_t, m_t
+
+
+def _slstm_inputs(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                  hin: torch.Tensor):
+    B, S, D = hin.shape
+    H = cfg.n_heads
+    shape = (B, S, H, D // H)
+    return ((hin @ p["wz"]).reshape(shape),
+            (hin @ p["wi"]).float().reshape(shape),
+            (hin @ p["wf"]).float().reshape(shape),
+            (hin @ p["wo_gate"]).reshape(shape))
+
+
+def slstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+                ) -> Tuple[torch.Tensor, State]:
+    """sLSTM residual block, a loop over time (sequential recurrence).
+    Returns (output, state)."""
+    B, S, D = x.shape
+    hin = rms_norm(x, p["ln1"], cfg.norm_eps)
+    zx, ix, fx, ox = _slstm_inputs(cfg, p, hin)
+    st = slstm_init_state(cfg, B, device=x.device)
+    c, h, m = st["c"], st["h"], st["m"]
+    hs = []
+    for t in range(S):
+        c, h, m = _slstm_cell(p, zx[:, t], ix[:, t], fx[:, t], ox[:, t],
+                              c, h, m)
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(B, S, D) @ p["wo"]
+    y = y + _gated_mlp(p, hin)
+    return x + y, {"c": c, "h": h, "m": m}
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int, device=None) -> State:
+    H = cfg.n_heads
+    shape = (batch, H, cfg.d_model // H)
+    f32 = torch.float32
+    return {"c": torch.zeros(shape, dtype=f32, device=device),
+            "h": torch.zeros(shape, dtype=cfg.tdtype(), device=device),
+            "m": torch.zeros(shape, dtype=f32, device=device)}
+
+
+def slstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               state: State) -> Tuple[torch.Tensor, State]:
+    B = x.shape[0]
+    hin = rms_norm(x, p["ln1"], cfg.norm_eps)
+    zt, it, ft, ot = (a[:, 0] for a in _slstm_inputs(cfg, p, hin))
+    c, h, m = _slstm_cell(p, zt, it, ft, ot, state["c"], state["h"],
+                          state["m"])
+    y = h.reshape(B, 1, cfg.d_model) @ p["wo"]
+    y = y + _gated_mlp(p, hin)
+    return x + y, {"c": c, "h": h, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma)
+# ---------------------------------------------------------------------------
+_RGLRU_C = 8.0
+
+
+def _rglru_gates(p: Dict[str, torch.Tensor], uc: torch.Tensor):
+    """Decay a and the gated, normalised input for conv outputs uc."""
+    r = torch.sigmoid((uc @ p["wa"]).float())                # recurrence gate
+    i = torch.sigmoid((uc @ p["wx"]).float())                # input gate
+    log_a = -_RGLRU_C * F.softplus(p["lam"].float()) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    return a, uc.float() * i * beta
+
+
+def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+                ) -> Tuple[torch.Tensor, State]:
+    """RG-LRU residual block: in-proj → conv1d(4) → gated linear recurrence
+    (the RG-LRU kernel) → out-proj.  Returns (output, state)."""
+    S = x.shape[1]
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    u, gate = torch.chunk(h @ p["w_in"], 2, dim=-1)          # (B, S, F) ×2
+    uc = _causal_conv4(u, p["conv"])
+    a, xin = _rglru_gates(p, uc)
+    y = ops.rglru_scan(a, xin)
+    out_gated = (y * F.gelu(gate.float(), approximate="tanh")).to(x.dtype)
+    out = x + out_gated @ p["w_out"]
+    # decode state: last recurrence value + last 3 raw conv inputs
+    hist = u[:, -3:] if S >= 3 else F.pad(u, (0, 0, 3 - S, 0))
+    return out, {"y": y[:, -1], "conv": hist}
+
+
+def _causal_conv4(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, kernel 4. u: (B, S, F); w: (4, F)."""
+    out = u * w[3]
+    for i in range(1, 4):
+        shifted = F.pad(u, (0, 0, i, 0))[:, :-i]
+        out = out + shifted * w[3 - i]
+    return out
+
+
+def rglru_init_state(cfg: ModelConfig, batch: int, device=None) -> State:
+    W = cfg.d_model
+    return {"y": torch.zeros((batch, W), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, 3, W), dtype=cfg.tdtype(),
+                                device=device)}
+
+
+def rglru_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               state: State) -> Tuple[torch.Tensor, State]:
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    u, gate = torch.chunk(h[:, 0] @ p["w_in"], 2, dim=-1)    # (B, F)
+    hist, w = state["conv"], p["conv"]                       # (B, 3, F)
+    uc = u * w[3] + hist[:, 2] * w[2] + hist[:, 1] * w[1] + hist[:, 0] * w[0]
+    new_hist = torch.cat([hist[:, 1:], u[:, None]], dim=1)
+    a, xin = _rglru_gates(p, uc)
+    y = state["y"] * a + xin
+    out = (y * F.gelu(gate.float(), approximate="tanh")).to(x.dtype)
+    return x + (out @ p["w_out"])[:, None], {"y": y, "conv": new_hist}

@@ -1,8 +1,10 @@
-"""Model assembly for attention-only stacks, ported from
+"""Model assembly for stacks of attention and recurrent layers, ported from
 ``repro.models.transformer``: embedding, logits, caches, prefill and greedy
-decode steps.  JAX's ``lax.scan`` over a group's ``reps`` becomes a Python
-loop; the caches keep JAX's nesting (per group, per pattern position, a
-dict of tensors stacked over ``reps``).
+decode steps, with the per-kind dispatch of ``apply_layer_prefill``,
+``apply_layer_decode`` and ``init_layer_state``.  JAX's ``lax.scan`` over a
+group's ``reps`` becomes a Python loop; the caches keep JAX's nesting (per
+group, per pattern position, a dict of tensors stacked over ``reps``):
+attention KV caches, or the state of a recurrent layer.
 """
 
 from __future__ import annotations
@@ -11,9 +13,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models import recurrent as rec
 from repro_torch.models.attention import (decode_attention, init_cache,
                                           prefill_attention)
-from repro_torch.models.common import LayerSpec, ModelConfig, Transformer, rms_norm
+from repro_torch.models.common import (LayerSpec, ModelConfig, Transformer,
+                                       rms_norm, weak_scalar)
 from repro_torch.models.moe import dense_ffn
 
 Caches = Tuple[Tuple[Dict[str, torch.Tensor], ...], ...]
@@ -32,17 +36,28 @@ def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) integer -> (B, S, D) scaled by sqrt(d_model)."""
     cfg = model.cfg
     table = model.embed
-    # JAX multiplies by the scale as a weakly typed scalar, i.e. rounded to
-    # the table's dtype first
-    scale = torch.tensor(cfg.d_model ** 0.5, dtype=table.dtype,
-                         device=table.device)
-    return (table[tokens] * scale).to(cfg.tdtype())
+    return (table[tokens] * weak_scalar(cfg.d_model ** 0.5, table)
+            ).to(cfg.tdtype())
 
 
 def logits_fn(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Tied head: (B, S, D) -> (B, S, V) logits against ``embed.T``."""
     x = rms_norm(x, model.out_norm, model.cfg.norm_eps)
     return x @ model.embed.T
+
+
+def init_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_seq: int, device=None) -> Dict[str, torch.Tensor]:
+    if spec.kind == "attn":
+        return init_cache(cfg, spec.window, batch, max_seq, cfg.tdtype(),
+                          device)
+    if spec.kind == "mlstm":
+        return rec.mlstm_init_state(cfg, batch, device)
+    if spec.kind == "slstm":
+        return rec.slstm_init_state(cfg, batch, device)
+    if spec.kind == "rglru":
+        return rec.rglru_init_state(cfg, batch, device)
+    raise ValueError(spec.kind)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
@@ -52,8 +67,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     for pattern, reps in cfg.blocks:
         per_pos = []
         for spec in pattern:
-            one = init_cache(cfg, spec.window, batch, max_seq, cfg.tdtype(),
-                             device)
+            one = init_layer_state(cfg, spec, batch, max_seq, device)
             per_pos.append({k: torch.stack([t] * reps) for k, t in one.items()})
         groups.append(tuple(per_pos))
     return tuple(groups)
@@ -61,12 +75,44 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p, x, positions,
                          max_seq: int):
-    B = x.shape[0]
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    cache = init_cache(cfg, spec.window, B, max_seq, cfg.tdtype(), x.device)
-    attn_out, new_cache = prefill_attention(cfg, p, h, spec.window, positions,
-                                            cache)
-    return _ffn_part(cfg, p, x + attn_out), new_cache
+    if spec.kind == "attn":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        cache = init_cache(cfg, spec.window, x.shape[0], max_seq, cfg.tdtype(),
+                           x.device)
+        attn_out, new_cache = prefill_attention(cfg, p, h, spec.window,
+                                                positions, cache)
+        return _ffn_part(cfg, p, x + attn_out), new_cache
+    if spec.kind == "mlstm":
+        return rec.mlstm_block(cfg, p, x)
+    if spec.kind == "slstm":
+        return rec.slstm_block(cfg, p, x)
+    if spec.kind == "rglru":
+        x, st = rec.rglru_block(cfg, p, x)
+        if spec.has_ffn:
+            x = _ffn_part(cfg, p, x)
+        return x, st
+    raise ValueError(spec.kind)
+
+
+def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
+                        cache: Dict[str, torch.Tensor], position: int
+                        ) -> torch.Tensor:
+    """One layer of a decode step.  ``cache`` holds this layer's views into
+    the stacked caches; they are updated in place."""
+    if spec.kind == "attn":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        attn_out, _ = decode_attention(cfg, p, h, cache, position)
+        return _ffn_part(cfg, p, x + attn_out)
+    step = {"mlstm": rec.mlstm_step, "slstm": rec.slstm_step,
+            "rglru": rec.rglru_step}.get(spec.kind)
+    if step is None:
+        raise ValueError(spec.kind)
+    x, new_state = step(cfg, p, x, cache)
+    for k, t in new_state.items():
+        cache[k].copy_(t)
+    if spec.kind == "rglru" and spec.has_ffn:
+        x = _ffn_part(cfg, p, x)
+    return x
 
 
 @torch.no_grad()
@@ -104,14 +150,11 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
     caches); the caches are updated in place."""
     cfg = model.cfg
     x = embed(model, tokens[:, None])
-    for (_, reps), stacked_g, caches_g in zip(cfg.blocks, model.groups,
-                                              caches):
+    for (pattern, reps), stacked_g, caches_g in zip(cfg.blocks, model.groups,
+                                                    caches):
         for r in range(reps):
-            for stacked, cache in zip(stacked_g, caches_g):
-                p = _layer(stacked, r)
-                h = rms_norm(x, p["ln1"], cfg.norm_eps)
-                attn_out, _ = decode_attention(cfg, p, h, _layer(cache, r),
-                                               position)
-                x = _ffn_part(cfg, p, x + attn_out)
+            for spec, stacked, cache in zip(pattern, stacked_g, caches_g):
+                x = _apply_layer_decode(cfg, spec, _layer(stacked, r), x,
+                                        _layer(cache, r), position)
     logits = logits_fn(model, x)
     return logits[:, 0], caches

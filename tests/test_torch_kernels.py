@@ -1,5 +1,6 @@
-"""The port's kernels, through their plain versions on the CPU, against the
-JAX package: the Pallas kernels in interpret mode and the oracles of
+"""The port's kernels (fingerprint, sliding-window attention, RG-LRU scan,
+chunkwise mLSTM), through their plain versions on the CPU, against the JAX
+package: the Pallas kernels in interpret mode and the oracles of
 ``repro.kernels.ref``.  Inputs are made with numpy from a seed and handed to
 both frameworks.  The CUDA kernels themselves run only on the card and are
 checked there by ``chip_smoke.py``."""
@@ -17,11 +18,25 @@ from repro.runtime import attest as jattest
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import crypto as tcrypto
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.mlstm import mlstm_cuda, mlstm_plain
+from repro_torch.kernels.rglru import rglru_cuda, rglru_plain
 from repro_torch.kernels.swa import swa_plain
 from repro_torch.runtime import attest
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
+
+RGLRU_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_kernels.py's
+MLSTM_TOL = {jnp.float32: dict(rtol=2e-4, atol=2e-4),   # tests/test_kernels.py's
+             jnp.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32))
 
 
 def _words_np(x: np.ndarray) -> np.ndarray:
@@ -127,3 +142,83 @@ def test_wrappers_refuse_devices_without_a_kernel_or_plain_path():
     q = torch.zeros(1, 8, 2, 4)
     with pytest.raises(ValueError):
         ops.sliding_window_attention(q, q.to("meta"), q, 4)
+
+
+@pytest.mark.parametrize("B,S,W,tb", [
+    (1, 32, 16, 8),
+    (2, 128, 64, 32),
+    (1, 100, 32, 25),
+    (3, 64, 8, 64),
+])
+def test_rglru_plain_matches_pallas_and_ref(B, S, W, tb):
+    rng = np.random.default_rng(S + W)
+    a = (1 / (1 + np.exp(-rng.standard_normal((B, S, W))))).astype(np.float32)
+    x = rng.standard_normal((B, S, W)).astype(np.float32)
+    got = ops.rglru_scan(_t(a), _t(x))
+    assert got.dtype == torch.float32 and got.shape == (B, S, W)
+    pallas = jops.rglru_scan(jnp.asarray(a), jnp.asarray(x), t_blk=tb)
+    jax_ref = jref.rglru_ref(jnp.asarray(a), jnp.asarray(x))
+    for want in (pallas, jax_ref):
+        np.testing.assert_allclose(got.numpy(), _np(want), **RGLRU_TOL)
+    np.testing.assert_allclose(ref.rglru_ref(_t(a), _t(x)).numpy(),
+                               _np(jax_ref), **RGLRU_TOL)
+    assert torch.equal(rglru_plain(_t(a), _t(x)), got)
+
+
+def _mlstm_inputs(B, S, H, dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S, H, dh)).astype(np.float32) * s
+            for s in (0.5, 0.5, 1.0)]
+    it = rng.standard_normal((B, S, H)).astype(np.float32)
+    ft = rng.standard_normal((B, S, H)).astype(np.float32) + 2.0
+    jqkv = [jnp.asarray(a).astype(dtype) for a in arrs]
+    tqkv = [tensor_from_numpy(np.asarray(a)) for a in jqkv]
+    return jqkv, tqkv, (it, ft)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("B,S,H,dh,chunk", [
+    (1, 32, 2, 8, 8),
+    (2, 64, 2, 16, 16),
+    (1, 64, 4, 32, 32),
+    (1, 48, 2, 16, 16),       # padded tail chunk
+])
+def test_mlstm_chunkwise_matches_pallas_and_sequential_oracle(
+        B, S, H, dh, chunk, dtype):
+    (jq, jk, jv), (q, k, v), (it, ft) = _mlstm_inputs(B, S, H, dh, dtype,
+                                                      seed=S + dh)
+    got = ops.mlstm_chunkwise(q, k, v, _t(it), _t(ft), chunk=chunk)
+    assert got.dtype == q.dtype and got.shape == (B, S, H, dh)
+    want = jops.mlstm_chunkwise(jq, jk, jv, jnp.asarray(it), jnp.asarray(ft),
+                                chunk=chunk)
+    np.testing.assert_allclose(got.float().numpy(), _np(want),
+                               **MLSTM_TOL[dtype])
+
+    def planes(x):      # (B, S, H, d) -> (B·H, S, d)
+        return x.transpose(1, 2).reshape(B * H, S, -1)
+
+    seq = ref.mlstm_ref(*(planes(x.float()) for x in (q, k, v)),
+                        planes(_t(it)[..., None]), planes(_t(ft)[..., None]))
+    jseq = jref.mlstm_ref(*(jnp.asarray(planes(x.float()).numpy())
+                            for x in (q, k, v)),
+                          jnp.asarray(planes(_t(it)[..., None]).numpy()),
+                          jnp.asarray(planes(_t(ft)[..., None]).numpy()))
+    np.testing.assert_allclose(seq.numpy(), _np(jseq), **MLSTM_TOL[jnp.float32])
+    np.testing.assert_allclose(
+        planes(got.float()).numpy(), seq.numpy(), **MLSTM_TOL[dtype])
+
+
+def test_wrappers_refuse_mixed_devices_and_kernels_refuse_cpu_tensors():
+    a = torch.rand(1, 8, 4)
+    with pytest.raises(ValueError):
+        ops.rglru_scan(a, a.to("meta"))
+    with pytest.raises(ValueError):
+        rglru_cuda(a, a)
+    q = torch.zeros(1, 8, 2, 4)
+    g = torch.zeros(1, 8, 2)
+    with pytest.raises(ValueError):
+        ops.mlstm_chunkwise_state(q, q, q.to("meta"), g, g, 8)
+    with pytest.raises(ValueError):
+        mlstm_cuda(q, q, q, g, g, 8)
+    with pytest.raises(ValueError):
+        mlstm_plain(q, q, q, g, g, 3)       # S is not a multiple of chunk
