@@ -7,12 +7,15 @@
    with ``nvcc`` (one process per source, all at once);
 2. holds the fingerprint kernel against its plain version, bit for bit;
 3. holds the sliding-window-attention kernel against its plain version at
-   gemma3-1b's and recurrentgemma-2b's shapes, and times it beside the
-   plain version and ``F.scaled_dot_product_attention`` with a banded mask;
+   gemma3-1b's and recurrentgemma-2b's shapes (bf16, fp16 and fp32), bit
+   for bit against itself on a repeat, and times it at both archs' longest
+   prefill beside the plain version and ``F.scaled_dot_product_attention``
+   with a banded mask;
 4. holds the RG-LRU scan kernel against its plain version at
    recurrentgemma-2b's width, bit for bit against itself on a repeat;
 5. holds the chunkwise mLSTM kernel (h and the final state) against its
-   plain version at xlstm-1.3b's head shape, bit for bit against itself;
+   plain version at xlstm-1.3b's head shape, bit for bit against itself,
+   and times it at the three padded lengths the xlstm-1.3b path runs;
 6. checks full-width layers in fp32 (one group of each arch: gemma3-1b's
    5:1, recurrentgemma-2b's RG-LRU, RG-LRU, attention, xlstm-1.3b's three
    mLSTM and one sLSTM) on the card against the same layers on the CPU;
@@ -24,7 +27,9 @@
    outside the server gives the same tokens.
 
 Any failure raises.  The line before the last is a JSON object of
-per-kernel numbers; the last line is ``{"ok": true, "device": ...}``.
+per-kernel numbers (a kernel timed at several shapes lists them under
+``shapes``; its top-level numbers are those of the first); the last line
+is ``{"ok": true, "device": ...}``.
 Without a GPU, or without the repository's ``src/`` beside it, the script
 exits non-zero and prints no result.
 """
@@ -70,12 +75,17 @@ except ImportError as e:
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 CORE_OPS = 67e12
-SWA_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# fp16 rounds its outputs finer than bf16 and takes bf16's limit
+SWA_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
 RGLRU_TOL = 1e-5                       # tests/test_kernels.py's rtol = atol
 # h: tests/test_kernels.py's rtol = atol; the fp32 state differs from the
 # plain version's only in the order of fp32 sums, whatever the input type
 MLSTM_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-4}
 MLSTM_STATE_TOL = 2e-4
+
+
+#: the per-shape numbers of a kernel's JSON entry
+TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def check(ok: bool, what: str) -> None:
@@ -91,11 +101,39 @@ def card() -> str:
     return res.stdout.strip()
 
 
+_SPIN = {}
+
+
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles a millisecond of ``torch.cuda._sleep`` takes, measured
+    once."""
+    if not _SPIN:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN["cycles_per_ms"] = 20_000_000 / start.elapsed_time(end)
+    return _SPIN["cycles_per_ms"]
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` calls that run back to back
+    on the device.  The calls are queued behind a spin kernel that lasts
+    longer than the host takes to issue them, so the host's cost of a call
+    (Python, allocation, the launch itself) leaves the device no gap between
+    them: a wrapper whose host cost exceeds its kernel's time would otherwise
+    be timed by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3      # host and device, one call
+    torch.cuda._sleep(int((2 * iters * call_ms + 1) * _spin_cycles_per_ms()))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -112,7 +150,8 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     for name, log in cuda.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"[1] built {', '.join(cuda.SOURCES)} for sm_90a in {secs:.1f} s")
 
@@ -208,36 +247,40 @@ def phase_swa() -> dict:
               ("gemma3-1b", 4, 1, 256, 512, 1168, True)]
     cases += [("recurrentgemma-2b", 10, 1, 256, 2048, S, False)
               for S in (1168, 3000)]
-    for dtype in (torch.bfloat16, torch.float32):
+    runs = [(dtype, case) for dtype in (torch.bfloat16, torch.float32)
+            for case in cases]
+    runs += [(torch.float16, case) for case in cases[:3]]
+    for dtype, (arch, H, KV, dh, w, S, strided) in runs:
         tol = SWA_TOL[dtype]
-        for arch, H, KV, dh, w, S, strided in cases:
-            q = torch.randn(1, S, H, dh, device="cuda", generator=gen).to(dtype)
-            if strided:     # k and v as views into one packed tensor
-                kv = torch.randn(1, S, 2 * KV, dh, device="cuda",
-                                 generator=gen).to(dtype)
-                k, v = kv[:, :, :KV], kv[:, :, KV:]
-            else:
-                k, v = (torch.randn(1, S, KV, dh, device="cuda",
-                                    generator=gen).to(dtype) for _ in range(2))
-            got = ops.sliding_window_attention(q, k, v, w)
-            want = swa_plain(q, k, v, w)
-            torch.cuda.synchronize()
-            err = _close(f"swa {arch} {dtype} S={S} KV={KV} strided={strided}",
-                         got, want, tol)
-            worst = max(worst, err)
-            print(f"    swa {arch} {str(dtype)[6:]} S={S} H={H} KV={KV} w={w}"
-                  f"{' strided' if strided else ''}: max abs err {err:.3g} "
-                  f"(tol {tol})")
+        q = torch.randn(1, S, H, dh, device="cuda", generator=gen).to(dtype)
+        if strided:     # k and v as views into one packed tensor
+            kv = torch.randn(1, S, 2 * KV, dh, device="cuda",
+                             generator=gen).to(dtype)
+            k, v = kv[:, :, :KV], kv[:, :, KV:]
+        else:
+            k, v = (torch.randn(1, S, KV, dh, device="cuda",
+                                generator=gen).to(dtype) for _ in range(2))
+        got = ops.sliding_window_attention(q, k, v, w)
+        again = ops.sliding_window_attention(q, k, v, w)
+        want = swa_plain(q, k, v, w)
+        torch.cuda.synchronize()
+        what = f"swa {arch} {dtype} S={S} KV={KV} strided={strided}"
+        check(torch.equal(got, again), f"{what}: a repeat gave other bits")
+        err = _close(what, got, want, tol)
+        worst = max(worst, err)
+        print(f"    swa {arch} {str(dtype)[6:]} S={S} H={H} KV={KV} w={w}"
+              f"{' strided' if strided else ''}: max abs err {err:.3g} "
+              f"(tol {tol}); repeat bit-identical")
 
     # time at the main paths' longest prefill: S = 3 * (384 + 8) - 8 = 1168
-    rows = {}
+    shapes = []
     for arch, H, w in (("gemma3-1b", 4, 512), ("recurrentgemma-2b", 10, 2048)):
         S, KV, dh = 1168, 1, 256
         q = torch.randn(1, S, H, dh, device="cuda", generator=gen,
                         dtype=torch.bfloat16)
         k, v = (torch.randn(1, S, KV, dh, device="cuda", generator=gen,
                             dtype=torch.bfloat16) for _ in range(2))
-        ms = cuda_ms(lambda: ops.sliding_window_attention(q, k, v, w), iters=20)
+        ms = cuda_ms(lambda: ops.sliding_window_attention(q, k, v, w), iters=50)
         plain_ms = cuda_ms(lambda: swa_plain(q, k, v, w), iters=10)
         pos = torch.arange(S, device="cuda")
         delta = pos[:, None] - pos[None, :]
@@ -246,7 +289,7 @@ def phase_swa() -> dict:
         kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
                   for x in (k, v))
         sdpa = F.scaled_dot_product_attention   # timed only; the port never calls it
-        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=band), iters=20)
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=band), iters=50)
         lib_err = float((sdpa(qt, kt, vt, attn_mask=band).transpose(1, 2).float()
                          - ops.sliding_window_attention(q, k, v, w).float()
                          ).abs().max())
@@ -256,13 +299,14 @@ def phase_swa() -> dict:
               f"{plain_ms:.4f} ms, sdpa+banded mask {library_ms:.4f} ms (max "
               f"diff to kernel {lib_err:.3g}), bound {bound_ms:.4f} ms "
               f"({bound_by})")
-        rows[arch] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
-    # the kernel line keeps gemma3-1b's shapes, as in the first slice
+        shapes.append(dict(shape=f"{arch}: S {S}, H {H}, KV {KV}, dh {dh}, "
+                                 f"w {w}, bf16",
+                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms))
     return {"name": "swa", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/swa.cu",
             "replaces": "src/repro/kernels/swa.py:27", "max_abs_err": worst,
-            **rows["gemma3-1b"]}
+            **{k: shapes[0][k] for k in TIMES}, "shapes": shapes}
 
 
 def phase_rglru() -> dict:
@@ -368,24 +412,36 @@ def phase_mlstm() -> dict:
                   f"h max abs err {max(errs):.3g} (tol {tol}), C/n/m "
                   f"{', '.join(f'{e:.3g}' for e in state_errs)} (tol "
                   f"{MLSTM_STATE_TOL}); repeat bit-identical")
-    # time at the main path's longest prefill: 916 tokens, padded to 1024
-    S = 1024
-    q, k, v, it, ft = _mlstm_inputs(S, torch.bfloat16, gen)
-    ms = cuda_ms(lambda: ops.mlstm_chunkwise_state(q, k, v, it, ft, chunk),
-                 iters=10)
-    plain_ms = cuda_ms(lambda: mlstm_plain(q, k, v, it, ft, chunk), iters=5)
-    bound_ms, bound_by = mlstm_bound_ms(S, 4, 512, chunk, 2)
+    # time at the padded lengths of the main path's prefills: 300, 608 and
+    # 916 tokens pad to 512, 768 and 1024
+    shapes = []
+    for S in (1024, 768, 512):
+        q, k, v, it, ft = _mlstm_inputs(S, torch.bfloat16, gen)
+        ms = cuda_ms(lambda: ops.mlstm_chunkwise_state(q, k, v, it, ft, chunk),
+                     iters=50)
+        plain_ms = cuda_ms(lambda: mlstm_plain(q, k, v, it, ft, chunk),
+                           iters=10)
+        bound_ms, bound_by = mlstm_bound_ms(S, 4, 512, chunk, 2)
+        # blocks: (plane, 64 rows, 128 columns of C); (plane, chunk, 64
+        # query rows, 128 value columns)
+        state_blocks = 4 * (512 // 64) * (512 // 128)
+        out_blocks = 4 * (S // chunk) * (chunk // 64) * (512 // 128)
+        print(f"[5] mlstm at S={S} (H=4, dh=512, chunk {chunk}, bf16): "
+              f"kernel {ms:.4f} ms (state pass {state_blocks} blocks, output "
+              f"pass {out_blocks}), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        shapes.append(dict(shape=f"xlstm-1.3b: S {S}, H 4, dh 512, chunk "
+                                 f"{chunk}, bf16",
+                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None))
     print(f"[5] mlstm: kernel == plain (h and C, n, m) at H=4, dh=512, chunk "
           f"{chunk}, S in (64, 256, 300, 1168), bf16 and fp32; repeats "
-          f"bit-identical; at S={S} bf16 kernel {ms:.4f} ms "
-          f"({4 * 512 // 32} blocks), plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+          f"bit-identical")
     return {"name": "mlstm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mlstm.cu",
             "replaces": "src/repro/kernels/mlstm.py:24",
-            "max_abs_err": max(worst.values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "max_abs_err": max(worst.values()),
+            **{k: shapes[0][k] for k in TIMES}, "shapes": shapes}
 
 
 def compare_layers(arch: str, S: int, tol: float, expect: dict) -> None:
@@ -568,9 +624,8 @@ def main() -> int:
           f"a kernel was never launched on the main paths: {launches}")
     kernels = [dict({k: row[k] for k in ("name", "route", "source", "replaces")},
                     launches=launches[row["name"]],
-                    **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "library_ms")})
+                    **{k: row[k] for k in ("max_abs_err", *TIMES, "shapes")
+                       if k in row})
                for row in rows]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)

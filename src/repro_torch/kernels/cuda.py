@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
 happen at first use, never at import, into ``kernels/build/`` (ignored by
-git); a library is named after a hash of its source, so an edited source
-builds anew.  :func:`build` starts one ``nvcc`` per missing library, all at
-once.
+git); a library is named after a hash of its source and of the shared
+headers ``csrc/*.cuh``, so an edited source or header builds anew.
+:func:`build` starts one ``nvcc`` per missing library, all at once.
 
 ``launches`` counts kernel launches by name.  Each launcher adds one where
 it launches its kernel and nowhere else, so a caller can reset the counts,
@@ -52,8 +52,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    """The library of ``csrc/<name>.cu``, named after a hash of the source
+    and the shared headers it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> None:
@@ -96,3 +100,16 @@ def check(status: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error (``cudaGetLastError``)."""
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
+
+
+def check_aligned(name: str, *xs) -> None:
+    """Raise unless every tensor of ``xs`` starts on a 16-byte boundary and
+    steps between rows in multiples of 16 bytes: the tensor-core kernels
+    copy rows into shared memory 16 bytes at a time (``cp.async``)."""
+    for x in xs:
+        if x.data_ptr() % 16 or any(
+                (st * x.element_size()) % 16 for st in x.stride()[:-1]):
+            raise ValueError(
+                f"the {name} kernel takes 16-byte aligned rows: pointer "
+                f"{x.data_ptr():#x}, strides {tuple(x.stride())} of "
+                f"{x.dtype}")

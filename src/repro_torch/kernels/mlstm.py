@@ -8,7 +8,10 @@ Neither pads: the callers do (``ops.mlstm_chunkwise`` as the JAX package's
 ``ops`` does, the model as ``mlstm_train`` does).  The kernel
 (``csrc/mlstm.cu``) replaces the TPU kernel
 ``src/repro/kernels/mlstm.py:_mlstm_kernel``, which keeps the state in
-VMEM and never writes it out; the model's decode needs it.
+VMEM and never writes it out; the model's decode needs it.  bf16 inputs
+run two tensor-core passes (the state entering each chunk, then every
+chunk's output at once) through scratch that the wrapper allocates; fp32
+inputs run the CUDA-core kernel.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def _lib() -> ctypes.CDLL:
     lib = cuda.load("mlstm")
     fn = lib.mlstm_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -41,8 +44,9 @@ def _lib() -> ctypes.CDLL:
 def mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                it: torch.Tensor, ft: torch.Tensor, chunk: int
                ) -> Tuple[torch.Tensor, State]:
-    """Launch the kernel on CUDA tensors.  q, k and v are read in place
-    through their strides; h and the state are new tensors."""
+    """Launch the kernel on CUDA tensors (one launch for fp32, the state
+    and output passes for bf16; one count either way).  q, k and v are read
+    in place through their strides; h and the state are new tensors."""
     B, S, H, dh = q.shape
     if not all(x.is_cuda and x.device == q.device for x in (q, k, v, it, ft)):
         raise ValueError("mlstm_cuda takes CUDA tensors on one device")
@@ -66,8 +70,20 @@ def mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the mLSTM kernel reads rows with unit head-dim stride")
     if not (it.is_contiguous() and ft.is_contiguous()):
         raise ValueError("the mLSTM kernel reads contiguous gates")
-    lib = _lib()
     dev = q.device
+    scratch = (None, None, None)
+    if q.dtype == torch.bfloat16:     # the tensor-core passes
+        if dh % 8:
+            raise ValueError(f"the bf16 mLSTM kernel takes dh a multiple of "
+                             f"8, not {dh}")
+        cuda.check_aligned("mLSTM", q, k, v)
+        nc = S // chunk
+        # the state entering each chunk: C as a bf16 (hi, lo) pair, n, m
+        C_in = torch.empty((B * H, nc, 2, dh, dh), dtype=q.dtype, device=dev)
+        n_in = torch.empty((B * H, nc, dh), dtype=torch.float32, device=dev)
+        m_in = torch.empty((B * H, nc), dtype=torch.float32, device=dev)
+        scratch = (C_in.data_ptr(), n_in.data_ptr(), m_in.data_ptr())
+    lib = _lib()
     h = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
     C = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)
     n = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
@@ -76,7 +92,7 @@ def mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     status = lib.mlstm_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),
         ft.data_ptr(), h.data_ptr(), C.data_ptr(), n.data_ptr(),
-        m.data_ptr(), _DTYPES[q.dtype], B, S, H, dh, chunk,
+        m.data_ptr(), *scratch, _DTYPES[q.dtype], B, S, H, dh, chunk,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), stream)

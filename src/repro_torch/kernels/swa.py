@@ -4,7 +4,9 @@ A query at position p attends to keys p-w+1 .. p.  q: (B, S, H, dh);
 k, v: (B, S, KV, dh) with H a multiple of KV (GQA: query head h reads kv
 head h // (H // KV)).  The softmax and P·V run in fp32 and the output has
 q's dtype, as in the TPU kernel ``src/repro/kernels/swa.py:_swa_kernel``
-that ``csrc/swa.cu`` replaces.  Forward only.
+that ``csrc/swa.cu`` replaces.  Forward only.  bf16 and fp16 inputs run
+the tensor-core kernel (dh a multiple of 16, rows 16-byte aligned), fp32
+inputs the CUDA-core one.
 """
 
 from __future__ import annotations
@@ -49,6 +51,11 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"1, not dh={dh}, window={window}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the SWA kernel reads rows with unit head-dim stride")
+    if q.dtype != torch.float32:      # the tensor-core kernel
+        if dh % 16:
+            raise ValueError(f"the {q.dtype} SWA kernel takes dh a multiple "
+                             f"of 16, not {dh}")
+        cuda.check_aligned("SWA", q, k, v)
     lib = _lib()
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.core import crypto as jcrypto
 from repro.kernels import ops as jops
@@ -17,7 +18,7 @@ from repro.runtime import attest as jattest
 
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import crypto as tcrypto
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import cuda, ops, ref
 from repro_torch.kernels.mlstm import mlstm_cuda, mlstm_plain
 from repro_torch.kernels.rglru import rglru_cuda, rglru_plain
 from repro_torch.kernels.swa import swa_plain
@@ -222,3 +223,191 @@ def test_wrappers_refuse_mixed_devices_and_kernels_refuse_cpu_tensors():
         mlstm_cuda(q, q, q, g, g, 8)
     with pytest.raises(ValueError):
         mlstm_plain(q, q, q, g, g, 3)       # S is not a multiple of chunk
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernels' arithmetic, emulated in PyTorch on the CPU and
+# held against the Pallas kernels in interpret mode.  The emulations follow
+# the CUDA sources (csrc/swa.cu, csrc/mlstm.cu) step by step: which tiles
+# are visited, what is computed from the gates alone, where an fp32 operand
+# enters a 16-bit product as a hi/lo pair.  The CUDA kernels themselves are
+# held against the plain versions on the card by chip_smoke.py.
+# ---------------------------------------------------------------------------
+NEG_INF_F = -1e30
+
+
+def _split(x, half=torch.bfloat16):
+    """An fp32 operand as the kernels feed it to the tensor cores: hi =
+    half(x), lo = half(x - hi), returned as fp32 values."""
+    hi = x.to(half).float()
+    return hi, (x - hi).to(half).float()
+
+
+def _swa_tile_walk(q, k, v, w, tile=64):
+    """csrc/swa.cu's swa_tc_kernel: a block of ``tile`` query rows walks the
+    key tiles that meet its band, masking only edge tiles.  Two warps share
+    the rows and take the first and second half of every tile's keys, each
+    with its own online softmax in log2 units (fp32) and P·V with P as a
+    hi/lo pair; at the end the second warp's state merges into the first's.
+    Returns the output and the number of key tiles visited."""
+    B, S, H, dh = q.shape
+    G = H // k.shape[2]
+    half = torch.bfloat16 if q.dtype == torch.float32 else q.dtype
+    sl2 = dh ** -0.5 * 1.4426950408889634
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(G, dim=2) for x in (k, v))
+    out = torch.empty(B, S, H, dh)
+    visited = 0
+    for q0 in range(0, S, tile):
+        rows = torch.arange(q0, min(q0 + tile, S))
+        shape = (B, len(rows), H)
+        # (m, l, acc) of the two key halves
+        state = [[torch.full(shape, NEG_INF_F), torch.zeros(shape),
+                  torch.zeros(*shape, dh)] for _ in range(2)]
+        kt0 = max(0, q0 - w + 1) // tile
+        kt1 = (min(q0 + tile, S) - 1) // tile
+        for kt in range(kt0, kt1 + 1):
+            visited += 1
+            for part, (m, l, acc) in enumerate(state):
+                k0 = kt * tile + part * tile // 2
+                if k0 >= S:
+                    continue
+                keys = torch.arange(k0, min(k0 + tile // 2, S))
+                s = torch.einsum("brhd,bkhd->brhk", qf[:, rows], kf[:, keys])
+                delta = rows[:, None] - keys[None, :]
+                band = ((delta >= 0) & (delta < w))[None, :, None, :]
+                s = torch.where(band, s * sl2, NEG_INF_F)
+                mn = torch.maximum(m, s.amax(-1))
+                p = torch.where(band, torch.exp2(s - mn[..., None]), 0.0)
+                alpha = torch.exp2(m - mn)
+                hi, lo = _split(p, half)
+                state[part] = [
+                    mn, l * alpha + p.sum(-1),
+                    acc * alpha[..., None]
+                    + torch.einsum("brhk,bkhd->brhd", hi, vf[:, keys])
+                    + torch.einsum("brhk,bkhd->brhd", lo, vf[:, keys])]
+        (ma, la, acca), (mb, lb, accb) = state
+        mx = torch.maximum(ma, mb)
+        fa, fb = torch.exp2(ma - mx), torch.exp2(mb - mx)
+        den = torch.clamp(la * fa + lb * fb, min=1e-30)
+        out[:, rows] = ((acca * fa[..., None] + accb * fb[..., None])
+                        / den[..., None])
+    return out.to(q.dtype), visited
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,dh,w,tile", [
+    (1, 200, 4, 1, 32, 48, 64),     # GQA 4:1, ragged S, tiles skipped
+    (2, 150, 4, 2, 16, 64, 64),     # ragged S, w = tile
+    (1, 130, 2, 2, 16, 512, 64),    # window longer than S
+    (1, 72, 4, 1, 16, 16, 16),      # small tiles, many skipped
+])
+def test_swa_tile_walk_matches_pallas(B, S, H, KV, dh, w, tile, dtype):
+    (jq, jk, jv), (q, k, v) = _swa_inputs(B, S, H, KV, dh, dtype, seed=S + w)
+    got, visited = _swa_tile_walk(q, k, v, w, tile)
+    want = jops.sliding_window_attention(jq, jk, jv, window=w)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+    n_tiles = -(-S // tile)
+    all_pairs = n_tiles * (n_tiles + 1) // 2     # every causal tile pair
+    assert (visited < all_pairs) == (S > w + tile)
+
+
+def _mlstm_two_pass(q, k, v, it, ft, c):
+    """csrc/mlstm.cu's bf16 path.  State pass: from the gates alone, chunk by
+    chunk, the stabiliser chain m, dec and w_s; the state entering each chunk
+    (C_in, n_in, m_in); C <- dec C + (k w)^T V with k w as a hi/lo pair.
+    Output pass, every chunk at once: row stabilisers from a prefix max of
+    i_s - csum_s, num = sq (q C_in) + W V with C_in and W as hi/lo pairs,
+    h = num / max(|rowsum W + sq q.n_in|, 1)."""
+    B, S, H, dh = q.shape
+    nc = S // c
+    qf, kf, vf = (x.float().reshape(B, nc, c, H, dh) for x in (q, k, v))
+    ig = it.float().reshape(B, nc, c, H)
+    csum = torch.cumsum(F.logsigmoid(ft.float()).reshape(B, nc, c, H), dim=2)
+    tot = csum[:, :, -1]                                      # (B, nc, H)
+
+    C = torch.zeros(B, H, dh, dh)
+    n = torch.zeros(B, H, dh)
+    m = torch.full((B, H), NEG_INF_F)
+    C_in, n_in, m_in = [], [], []
+    for j in range(nc):
+        C_in.append(C)
+        n_in.append(n)
+        m_in.append(m)
+        a_end = (tot[:, j, None] - csum[:, j]) + ig[:, j]     # (B, c, H)
+        m_next = torch.maximum(tot[:, j] + m, a_end.amax(dim=1))
+        dec = torch.exp((tot[:, j] + m) - m_next)
+        w_s = torch.exp(a_end - m_next[:, None])
+        hi, lo = _split(kf[:, j] * w_s[..., None])
+        C = (C * dec[..., None, None]
+             + torch.einsum("bshd,bshe->bhde", hi, vf[:, j])
+             + torch.einsum("bshd,bshe->bhde", lo, vf[:, j]))
+        n = n * dec[..., None] + torch.einsum("bsh,bshd->bhd", w_s, kf[:, j])
+        m = m_next
+    C_in, n_in, m_in = (torch.stack(x, dim=1) for x in (C_in, n_in, m_in))
+
+    pm = torch.cummax(ig - csum, dim=2).values
+    b = csum + m_in[:, :, None]                               # (B, nc, c, H)
+    m_row = torch.maximum(csum + pm, b)
+    sq = torch.exp(b - m_row)
+    hi, lo = _split(C_in)
+    inter = (torch.einsum("bjthd,bjhde->bjthe", qf, hi)
+             + torch.einsum("bjthd,bjhde->bjthe", qf, lo)) * sq[..., None]
+    scores = torch.einsum("bjthd,bjshd->bjtsh", qf, kf)
+    a = (csum[:, :, :, None] - csum[:, :, None]) + ig[:, :, None]
+    causal = torch.ones(c, c, dtype=torch.bool).tril()[None, None, :, :, None]
+    W = torch.where(causal, scores * torch.exp(a - m_row[:, :, :, None]), 0.0)
+    hi, lo = _split(W)
+    num = (inter + torch.einsum("bjtsh,bjshd->bjthd", hi, vf)
+           + torch.einsum("bjtsh,bjshd->bjthd", lo, vf))
+    n_inter = torch.einsum("bjthd,bjhd->bjth", qf, n_in) * sq
+    den = torch.clamp((W.sum(dim=3) + n_inter).abs(), min=1.0)
+    h = (num / den[..., None]).reshape(B, S, H, dh)
+    return h.to(q.dtype), (C, n, m)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("B,S,H,dh,chunk", [
+    (1, 32, 2, 16, 32),       # one chunk
+    (2, 64, 2, 16, 32),       # two chunks
+    (1, 128, 2, 32, 32),      # four chunks
+    (1, 40, 2, 16, 16),       # padded tail: 40 -> 48, three chunks
+])
+def test_mlstm_two_pass_matches_pallas_and_plain_state(B, S, H, dh, chunk,
+                                                       dtype):
+    (jq, jk, jv), (q, k, v), (it, ft) = _mlstm_inputs(B, S, H, dh, dtype,
+                                                      seed=S + chunk)
+    c = min(chunk, S)
+    pad = (-S) % c
+    padded = [F.pad(x, (0, 0, 0, 0, 0, pad))
+              for x in (q, k, v)]
+    gates = [F.pad(_t(it), (0, 0, 0, pad)),
+             F.pad(_t(ft), (0, 0, 0, pad), value=30.0)]
+    h, state = _mlstm_two_pass(*padded, *gates, c)
+    want = jops.mlstm_chunkwise(jq, jk, jv, jnp.asarray(it), jnp.asarray(ft),
+                                chunk=chunk)
+    np.testing.assert_allclose(h[:, :S].float().numpy(), _np(want),
+                               **MLSTM_TOL[dtype])
+    _, plain_state = mlstm_plain(*padded, *gates, c)
+    for got_x, want_x in zip(state, plain_state):
+        np.testing.assert_allclose(got_x.numpy(), want_x.numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("view,ok", [
+    (lambda x: x, True),                       # rows of 80 bytes
+    (lambda x: x[:, :, 1:], True),             # a row further on
+    (lambda x: x[..., 4:], False),             # starts 8 bytes in
+    (lambda x: x[..., :36], True),             # shorter rows, same strides
+    (lambda x: x.reshape(2, 3, 2, 80)[..., 4:40], False),
+])
+def test_tensor_core_kernels_take_16_byte_aligned_rows(view, ok):
+    """The tensor-core kernels copy rows 16 bytes at a time: the wrappers
+    refuse a tensor whose start or row steps are not 16-byte multiples."""
+    x = view(torch.zeros(2, 3, 4, 40, dtype=torch.bfloat16))
+    if ok:
+        cuda.check_aligned("test", x)
+    else:
+        with pytest.raises(ValueError):
+            cuda.check_aligned("test", x)
