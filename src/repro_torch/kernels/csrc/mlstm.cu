@@ -84,9 +84,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-struct Strides {
-    long long b, s, h;   // in elements; the head-dim stride is 1
-};
+using tc::Strides;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -336,34 +334,14 @@ __device__ __forceinline__ float warp_max(float x) {
     return x;
 }
 
-// Starts the copy of a TB x ncols tile (row r at src + r * stride) into dst
-// (ld elements a row), 16 bytes a thread at a time; rows at or past rows_ok
-// and 8-column pieces at or past cols_ok are zero-filled.
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          long long stride, int ncols,
-                                          int rows_ok, int cols_ok) {
-    const int cpr = ncols >> 3;
-    for (int idx = threadIdx.x; idx < TB * cpr; idx += TC_THREADS) {
-        const int r = idx / cpr, c8 = (idx - r * cpr) << 3;
-        const bool ok = r < rows_ok && c8 < cols_ok;
-        const bf16* g = ok ? src + (long long)r * stride + c8 : src;
-        tc::cp_async16(dst + r * ld + c8, g, ok);
-    }
-}
-
-// The same for a tile of NCOLS columns, known at compile time.
+// Starts the copy of a TB x NCOLS tile (tc::load_tile) by the block's
+// threads.
 template <int NCOLS>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
                                           long long stride, int rows_ok,
                                           int cols_ok) {
-    constexpr int CPR = NCOLS / 8;
-#pragma unroll
-    for (int idx = threadIdx.x; idx < TB * CPR; idx += TC_THREADS) {
-        const int r = idx / CPR, c8 = (idx % CPR) * 8;
-        const bool ok = r < rows_ok && c8 < cols_ok;
-        const bf16* g = ok ? src + (long long)r * stride + c8 : src;
-        tc::cp_async16(dst + r * ld + c8, g, ok);
-    }
+    tc::load_tile<TB, NCOLS, TC_THREADS>(dst, ld, src, stride, rows_ok,
+                                         cols_ok);
 }
 
 // Inclusive scan (sum, or max if kMax) of x[0 .. n), n <= 256, in shared
@@ -635,7 +613,9 @@ mlstm_out_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* itb = it + (long long)b * S * H + hh;
     const float* ftb = ft + (long long)b * S * H + hh;
 
-    load_rows(Qs, ldq, qb, qs.s, dhp, c - t0, dh);
+    for (int ds = 0; ds < dhp / TB; ++ds)
+        load_tile<TB>(Qs + ds * TB, ldq, qb + ds * TB, qs.s, c - t0,
+                      dh - ds * TB);
     tc::cp_async_commit();
 
     // steps: nA slices of q.C_in, then (qt + 1) key tiles x nds slices
@@ -845,19 +825,13 @@ int launch(const void* q, const void* k, const void* v, const float* it,
     return static_cast<int>(cudaGetLastError());
 }
 
-
-bool aligned16(const void* p, Strides s) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s.b % 8 == 0 &&
-           s.s % 8 == 0 && s.h % 8 == 0;
-}
-
 int launch_tc(const void* q, const void* k, const void* v, const float* it,
               const float* ft, void* h, float* C, float* n, float* m,
               void* C_in, float* n_in, float* m_in, int B, int S, int H,
               int dh, int c, Strides qs, Strides ks, Strides vs,
               cudaStream_t stream) {
-    if (dh % 8 != 0 || !aligned16(q, qs) || !aligned16(k, ks) ||
-        !aligned16(v, vs) || C_in == nullptr || n_in == nullptr ||
+    if (dh % 8 != 0 || !tc::aligned16(q, qs) || !tc::aligned16(k, ks) ||
+        !tc::aligned16(v, vs) || C_in == nullptr || n_in == nullptr ||
         m_in == nullptr)
         return cudaErrorInvalidValue;
     const bf16* qp = static_cast<const bf16*>(q);

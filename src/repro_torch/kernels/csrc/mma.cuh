@@ -1,6 +1,7 @@
-// Tensor-core building blocks shared by swa.cu and mlstm.cu: 16-byte
-// cp.async tile copies, ldmatrix, mma.sync.m16n8k16 (bf16 or fp16 in, fp32
-// accumulate) and the hi/lo split of an fp32 operand.
+// Tensor-core building blocks shared by swa.cu and mlstm.cu: strided
+// operands and their alignment rule, 16-byte cp.async tile copies, ldmatrix,
+// mma.sync.m16n8k16 (bf16 or fp16 in, fp32 accumulate) and the hi/lo split
+// of an fp32 operand.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -23,6 +24,19 @@
 
 namespace tc {
 
+// Strides of a (B, S, H, dh) operand in elements; the head-dim stride is 1.
+struct Strides {
+    long long b, s, h;
+};
+
+// The tensor-core kernels copy rows 16 bytes at a time: the base must be
+// 16-byte aligned and every stride a multiple of 8 16-bit elements.  (The
+// Python wrappers check the same first, with a readable error.)
+inline bool aligned16(const void* p, Strides s) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s.b % 8 == 0 &&
+           s.s % 8 == 0 && s.h % 8 == 0;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -38,6 +52,30 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Starts the copy of a ROWS x NCOLS tile of 16-bit values (row r at
+// src + r * stride) into dst (ld elements a row), 16 bytes a thread at a
+// time over a block of THREADS threads: consecutive threads take
+// consecutive 8-column pieces of a row.  Rows at or past rows_ok and pieces
+// at or past column cols_ok are zero-filled (src is then not read).  With
+// UNROLL false the loop stays rolled: a caller short of registers (SWA's
+// main loop holds a 16 x 256 fp32 accumulator a warp) would otherwise keep
+// every step's address live at once, and spill.
+template <int ROWS, int NCOLS, int THREADS, bool UNROLL = true, typename T>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
+                                          long long stride, int rows_ok,
+                                          int cols_ok) {
+    constexpr int CPR = NCOLS / 8;
+    static_assert(ROWS * CPR % THREADS == 0, "whole steps of the block");
+#pragma unroll (UNROLL ? ROWS * CPR / THREADS : 1)
+    for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
+        const int idx = threadIdx.x + i * THREADS;
+        const int r = idx / CPR, c8 = (idx % CPR) * 8;
+        const bool ok = r < rows_ok && c8 < cols_ok;
+        const T* g = ok ? src + (long long)r * stride + c8 : src;
+        cp_async16(dst + r * ld + c8, g, ok);
+    }
 }
 
 // Waits until at most N of this thread's committed groups are pending.

@@ -81,9 +81,7 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ void store(__half* p, float x) { *p = __float2half(x); }
 
-struct Strides {
-    long long b, s, h;   // in elements; the head-dim stride is 1
-};
+using tc::Strides;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -227,20 +225,15 @@ constexpr int TC_PAD = 8;            // elements added to each shared row
 constexpr int ND = MAX_DH / 8;       // 8-column blocks of a row of out
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Starts the copy of rows row0 .. row0 + 63 (dh elements each) of a strided
-// array into dst (ld elements a row): a warp copies a row, 16 bytes a lane.
-// Rows at or past `limit` are zero-filled.
+// Starts the copy of rows row0 .. row0 + 63 (dh elements each, then zeros
+// to MAX_DH) of a strided array into dst (ld elements a row): a warp copies
+// a row, 16 bytes a lane.  Rows at or past `limit` are zero-filled.
 template <typename T>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           long long stride, int row0,
                                           int limit, int dh) {
-    const int c8 = (threadIdx.x & 31) * 8;   // dh <= 256: one piece a lane
-    if (c8 >= dh) return;
-    for (int r = threadIdx.x >> 5; r < TC_BM; r += TC_WARPS) {
-        const bool ok = row0 + r < limit;
-        const T* g = ok ? src + (long long)(row0 + r) * stride + c8 : src;
-        tc::cp_async16(dst + r * ld + c8, g, ok);
-    }
+    tc::load_tile<TC_BM, MAX_DH, TC_THREADS, false>(
+        dst, ld, src + row0 * stride, stride, limit - row0, dh);
 }
 
 template <typename T>
@@ -277,18 +270,10 @@ swa_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kt0 = max(0, q0 - window + 1) / TC_BN;
     const int kt1 = (min(q0 + TC_BM, S) - 1) / TC_BN;
 
-    // Columns dh .. MAX_DH - 1 of every row stay zero, so that the products
-    // below run over MAX_DH columns with no bound known only at run time:
-    // a runtime bound inside the unrolled loops would cut them into blocks
-    // that the compiler cannot overlap.
-    if (dh < MAX_DH) {
-        const int pieces = (MAX_DH - dh) / 8;
-        for (int i = threadIdx.x; i < (TC_BM + 4 * TC_BN) * pieces;
-             i += TC_THREADS) {
-            const int r = i / pieces, c = dh + (i - r * pieces) * 8;
-            *reinterpret_cast<uint4*>(Qs + r * ld + c) = make_uint4(0, 0, 0, 0);
-        }
-    }
+    // Columns dh .. MAX_DH - 1 of every row are zero-filled by the copies,
+    // so that the products below run over MAX_DH columns with no bound
+    // known only at run time: a runtime bound inside the unrolled loops
+    // would cut them into blocks that the compiler cannot overlap.
     load_tile(Qs, ld, qb, qs.s, q0, S, dh);
     load_tile(Ks, ld, kb, ks.s, kt0 * TC_BN, S, dh);
     load_tile(Vs, ld, vb, vs.s, kt0 * TC_BN, S, dh);
@@ -487,17 +472,12 @@ int launch_core(const void* q, const void* k, const void* v, void* o, int B,
     return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p, Strides s) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s.b % 8 == 0 &&
-           s.s % 8 == 0 && s.h % 8 == 0;
-}
-
 template <typename T>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
               int S, int H, int KV, int dh, int window, Strides qs,
               Strides ks, Strides vs, float scale, cudaStream_t stream) {
-    if (dh % 16 != 0 || !aligned16(q, qs) || !aligned16(k, ks) ||
-        !aligned16(v, vs))
+    if (dh % 16 != 0 || !tc::aligned16(q, qs) || !tc::aligned16(k, ks) ||
+        !tc::aligned16(v, vs))
         return cudaErrorInvalidValue;
     const size_t smem =
         sizeof(T) * (size_t)(TC_BM + 4 * TC_BN) * (size_t)(MAX_DH + TC_PAD);

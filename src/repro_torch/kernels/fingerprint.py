@@ -11,6 +11,7 @@ them.  The kernel (``csrc/fingerprint.cu``) replaces the TPU kernel
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,6 +24,7 @@ _WORD_BYTES = {torch.bfloat16: 2, torch.float16: 2, torch.float32: 4,
 _PLAIN_CHUNK = 1 << 24
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda.load("fingerprint")
     fn = lib.fingerprint_launch

@@ -17,6 +17,7 @@ inputs run the CUDA-core kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -32,6 +33,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda.load("mlstm")
     fn = lib.mlstm_launch
@@ -71,23 +73,31 @@ def mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (it.is_contiguous() and ft.is_contiguous()):
         raise ValueError("the mLSTM kernel reads contiguous gates")
     dev = q.device
+    P, nc = B * H, S // chunk
     scratch = (None, None, None)
     if q.dtype == torch.bfloat16:     # the tensor-core passes
         if dh % 8:
             raise ValueError(f"the bf16 mLSTM kernel takes dh a multiple of "
                              f"8, not {dh}")
         cuda.check_aligned("mLSTM", q, k, v)
-        nc = S // chunk
-        # the state entering each chunk: C as a bf16 (hi, lo) pair, n, m
-        C_in = torch.empty((B * H, nc, 2, dh, dh), dtype=q.dtype, device=dev)
-        n_in = torch.empty((B * H, nc, dh), dtype=torch.float32, device=dev)
-        m_in = torch.empty((B * H, nc), dtype=torch.float32, device=dev)
-        scratch = (C_in.data_ptr(), n_in.data_ptr(), m_in.data_ptr())
+        # the state entering each chunk, in one allocation: C as a bf16
+        # (hi, lo) pair (P, nc, 2, dh, dh), n (P, nc, dh) and m (P, nc) in
+        # fp32, each part starting on a 16-byte boundary
+        sizes = (P * nc * 2 * dh * dh * 2, P * nc * dh * 4, P * nc * 4)
+        offsets = [0]
+        for size in sizes[:-1]:
+            offsets.append(offsets[-1] + (size + 15) // 16 * 16)
+        buf = torch.empty(offsets[-1] + sizes[-1], dtype=torch.uint8,
+                          device=dev)
+        scratch = tuple(buf.data_ptr() + off for off in offsets)
     lib = _lib()
     h = torch.empty((B, S, H, dh), dtype=q.dtype, device=dev)
-    C = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)
-    n = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
-    m = torch.empty((B, H), dtype=torch.float32, device=dev)
+    # the final C, n and m as views of one fp32 allocation
+    state = torch.empty(P * (dh * dh + dh + 1), dtype=torch.float32,
+                        device=dev)
+    C = state[:P * dh * dh].view(B, H, dh, dh)
+    n = state[P * dh * dh:P * (dh * dh + dh)].view(B, H, dh)
+    m = state[P * (dh * dh + dh):].view(B, H)
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.mlstm_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),

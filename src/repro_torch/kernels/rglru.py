@@ -10,12 +10,14 @@ each sum apart, as the plain version does, so the two agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import cuda
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda.load("rglru")
     fn = lib.rglru_launch

@@ -12,6 +12,7 @@ inputs the CUDA-core one.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +24,7 @@ MAX_DH = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda.load("swa")
     fn = lib.swa_launch

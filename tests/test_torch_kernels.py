@@ -231,7 +231,10 @@ def test_wrappers_refuse_mixed_devices_and_kernels_refuse_cpu_tensors():
 # the CUDA sources (csrc/swa.cu, csrc/mlstm.cu) step by step: which tiles
 # are visited, what is computed from the gates alone, where an fp32 operand
 # enters a 16-bit product as a hi/lo pair.  The CUDA kernels themselves are
-# held against the plain versions on the card by chip_smoke.py.
+# held against the plain versions on the card by chip_smoke.py; nothing here
+# notices when a .cu file drifts from its emulation, so a change to the
+# arithmetic of csrc/swa.cu or csrc/mlstm.cu changes the emulation below in
+# the same commit.
 # ---------------------------------------------------------------------------
 NEG_INF_F = -1e30
 
@@ -249,7 +252,8 @@ def _swa_tile_walk(q, k, v, w, tile=64):
     the rows and take the first and second half of every tile's keys, each
     with its own online softmax in log2 units (fp32) and P·V with P as a
     hi/lo pair; at the end the second warp's state merges into the first's.
-    Returns the output and the number of key tiles visited."""
+    Returns the output and the number of key tiles visited.  Mirrors
+    ``swa_tc_kernel`` as of commit 10cbea7."""
     B, S, H, dh = q.shape
     G = H // k.shape[2]
     half = torch.bfloat16 if q.dtype == torch.float32 else q.dtype
@@ -319,7 +323,8 @@ def _mlstm_two_pass(q, k, v, it, ft, c):
     (C_in, n_in, m_in); C <- dec C + (k w)^T V with k w as a hi/lo pair.
     Output pass, every chunk at once: row stabilisers from a prefix max of
     i_s - csum_s, num = sq (q C_in) + W V with C_in and W as hi/lo pairs,
-    h = num / max(|rowsum W + sq q.n_in|, 1)."""
+    h = num / max(|rowsum W + sq q.n_in|, 1).  Mirrors
+    ``mlstm_state_kernel`` and ``mlstm_out_kernel`` as of commit 10cbea7."""
     B, S, H, dh = q.shape
     nc = S // c
     qf, kf, vf = (x.float().reshape(B, nc, c, H, dh) for x in (q, k, v))
