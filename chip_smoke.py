@@ -11,8 +11,13 @@
    for bit against itself on a repeat, and times it at both archs' longest
    prefill beside the plain version and ``F.scaled_dot_product_attention``
    with a banded mask;
-4. holds the RG-LRU scan kernel against its plain version at
-   recurrentgemma-2b's width, bit for bit against itself on a repeat;
+4. holds the RG-LRU scan kernel (a segmented scan over time) against its
+   plain version at recurrentgemma-2b's width, at batch 1 and 2, the served
+   lengths, the lengths around a super-chunk's and a decay near 1: within
+   1e-5, its first segment bit for bit, bit for bit against itself on a
+   repeat; and times it at the three served lengths and at batch 2, with
+   its inputs in L2 (warm) and read from HBM (cold), beside ``torch.add``
+   on the same bytes;
 5. holds the chunkwise mLSTM kernel (h and the final state) against its
    plain version at xlstm-1.3b's head shape, bit for bit against itself,
    and times it at the three padded lengths the xlstm-1.3b path runs;
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -65,7 +71,7 @@ import torch.nn.functional as F  # noqa: E402
 try:
     from repro_torch.configs import get_config  # noqa: E402
     from repro_torch.core import crypto  # noqa: E402
-    from repro_torch.kernels import cuda, ops  # noqa: E402
+    from repro_torch.kernels import cuda, ops, rglru  # noqa: E402
     from repro_torch.kernels.fingerprint import (fingerprint_cuda,  # noqa: E402
                                                  fingerprint_plain)
     from repro_torch.kernels.mlstm import mlstm_plain  # noqa: E402
@@ -83,6 +89,8 @@ except ImportError as e:
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 CORE_OPS = 67e12
+# input bytes a cold timing rotates over: four times the H100's 50 MB L2
+ROTATE_BYTES = 200_000_000
 # fp16: about four times the largest error read on the card (9.8e-4)
 SWA_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 2e-5}
 RGLRU_TOL = 1e-5                       # tests/test_kernels.py's rtol = atol
@@ -336,43 +344,95 @@ def phase_swa() -> dict:
             **{k: shapes[0][k] for k in TIMES}, "shapes": shapes}
 
 
+def rglru_bound_ms(B: int, S: int, W: int):
+    bytes_ms = 3 * B * S * W * 4 / HBM_BYTES_S * 1e3     # a, x in; y out
+    ops_ms = 2 * B * S * W / CORE_OPS * 1e3              # fp32 mul and add
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
 def phase_rglru() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     W = 2560                                   # recurrentgemma-2b's lru width
+    lanes, segments, steps = rglru.layout()
+    chunk = segments * steps                   # steps of a super-chunk
     worst, bitexact = 0.0, True
-    for B in (1, 2):
-        for S in (1, 100, 1168, 4096):
+    lengths = (1, 384, 776, 1168, chunk - 1, chunk, chunk + 1, 4096)
+    cases = [(B, S, "uniform") for B in (1, 2) for S in lengths]
+    cases.append((1, 4096, "near 1"))
+    for B, S, decay in cases:
+        if decay == "uniform":
             a = torch.rand(B, S, W, device="cuda", generator=gen)   # in (0, 1)
             x = torch.randn(B, S, W, device="cuda", generator=gen)
-            got = ops.rglru_scan(a, x)
-            again = ops.rglru_scan(a, x)
-            want = rglru_plain(a, x)
-            torch.cuda.synchronize()
-            check(torch.equal(got, again), f"rglru B={B} S={S}: a repeat "
-                  f"gave other bits")
-            worst = max(worst, _close(f"rglru B={B} S={S}", got, want,
-                                      RGLRU_TOL))
-            bitexact = bitexact and torch.equal(got, want)
-    # time at the main path's longest prefill
-    B, S = 1, 1168
-    a = torch.rand(B, S, W, device="cuda", generator=gen)
-    x = torch.randn(B, S, W, device="cuda", generator=gen)
-    t = timed(lambda: ops.rglru_scan(a, x), lambda: rglru_plain(a, x), None,
-              iters=50, plain_iters=3)
-    bytes_ms = 3 * B * S * W * 4 / HBM_BYTES_S * 1e3     # a, x in; y out
-    ops_ms = 2 * B * S * W / CORE_OPS * 1e3              # fp32 mul and add
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[4] rglru: kernel == plain within {RGLRU_TOL} at B in (1, 2), "
-          f"W={W}, S in (1, 100, 1168, 4096) (max abs err {worst:.3g}, bit "
-          f"for bit: {bitexact}); repeats bit-identical; at B={B} S={S} "
-          f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}; {W} "
-          f"threads), plain {t['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
-          f"(bytes)")
+        else:       # a = 1 - 1e-3 u; x scaled by the model's sqrt(1 - a²)
+            a = 1 - 1e-3 * torch.rand(B, S, W, device="cuda", generator=gen)
+            x = (torch.randn(B, S, W, device="cuda", generator=gen)
+                 * torch.sqrt(1 - a * a))
+        got = ops.rglru_scan(a, x)
+        again = ops.rglru_scan(a, x)
+        want = rglru_plain(a, x)
+        torch.cuda.synchronize()
+        what = f"rglru B={B} S={S} a {decay}"
+        check(torch.equal(got, again), f"{what}: a repeat gave other bits")
+        check(torch.equal(got[:, :steps], want[:, :steps]),
+              f"{what}: the first segment differs from the plain version")
+        err = _close(what, got, want, RGLRU_TOL)
+        worst = max(worst, err)
+        bitexact = bitexact and torch.equal(got, want)
+        print(f"    {what}: max abs err {err:.3g} (tol {RGLRU_TOL}, max "
+              f"|y| {float(want.abs().max()):.3g}); first {steps} steps "
+              f"bit-exact; repeat bit-identical")
+    print(f"[4] rglru ({lanes} lanes x {segments} segments x {steps} steps a "
+          f"block): kernel == plain within {RGLRU_TOL} at W={W}, B in (1, 2), "
+          f"S in {lengths} and a near 1 at S 4096 (max abs err {worst:.3g}); "
+          f"first {steps} steps bit-exact; repeats bit-identical; whole "
+          f"output bit for bit: {bitexact} (information only)")
+    # time at the main path's prefill lengths (prompts of 384 tokens, three
+    # turns), and at batch 2.  Warm: every call reads the same a and x,
+    # which stay in the 50 MB L2 where they fit (36 MB at B 1, S 1168).
+    # Cold: the calls rotate over input sets of at least 200 MB in all, so
+    # each reads a and x from HBM.  torch.add(a, x, out=y) moves the same
+    # 12 bytes an element: the floor a copy reaches, timed both ways too.
+    shapes = []
+    for B, S in ((1, 1168), (1, 776), (1, 384), (2, 1168)):
+        n_sets = max(4, -(-ROTATE_BYTES // (2 * B * S * W * 4)))
+        sets = [(torch.rand(B, S, W, device="cuda", generator=gen),
+                 torch.randn(B, S, W, device="cuda", generator=gen))
+                for _ in range(n_sets)]
+        a, x = sets[0]
+        y = torch.empty_like(a)
+        rotate = itertools.cycle(sets)
+        t = timed(lambda: ops.rglru_scan(a, x), lambda: rglru_plain(a, x),
+                  None, iters=100, plain_iters=3)
+        t["cold_ms"], t["cold_device_ms"] = time_ms(
+            lambda: ops.rglru_scan(*next(rotate)), 100)
+        t["add_ms"], t["add_device_ms"] = time_ms(
+            lambda: torch.add(a, x, out=y), 100)
+        t["add_cold_ms"], t["add_cold_device_ms"] = time_ms(
+            lambda: torch.add(*next(rotate), out=y), 100)
+        bound_ms, bound_by = rglru_bound_ms(B, S, W)
+        blocks = B * -(-W // lanes)
+        print(f"[4] rglru at B={B} S={S} W={W} fp32, back to back (device): "
+              f"kernel {t['ms']:.4f} ({t['device_ms']:.4f}) ms warm, "
+              f"{t['cold_ms']:.4f} ({t['cold_device_ms']:.4f}) ms cold over "
+              f"{n_sets} input sets ({blocks} blocks of {lanes * segments} "
+              f"threads), plain {t['plain_ms']:.3f} ms; torch.add of the "
+              f"same bytes {t['add_ms']:.4f} ({t['add_device_ms']:.4f}) ms "
+              f"warm, {t['add_cold_ms']:.4f} ({t['add_cold_device_ms']:.4f}) "
+              f"ms cold; bound {bound_ms:.4f} ms ({bound_by}; device share "
+              f"{bound_ms / t['device_ms']:.0%} warm, "
+              f"{bound_ms / t['cold_device_ms']:.0%} cold); kernel against "
+              f"torch.add, device: {t['add_device_ms'] / t['device_ms']:.0%} "
+              f"warm, {t['add_cold_device_ms'] / t['cold_device_ms']:.0%} "
+              f"cold")
+        shapes.append(dict(shape=f"recurrentgemma-2b: B {B}, S {S}, W {W}, "
+                                 f"fp32",
+                           **t, bound_ms=bound_ms, bound_by=bound_by))
+        del sets, rotate
     return {"name": "rglru", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rglru.cu",
             "replaces": "src/repro/kernels/rglru.py:21", "max_abs_err": worst,
-            **t, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            **{k: shapes[0][k] for k in TIMES}, "shapes": shapes}
 
 
 def _mlstm_inputs(S: int, dtype: torch.dtype, gen: torch.Generator):

@@ -3,14 +3,22 @@
 y_t = a_t · y_{t-1} + x_t over a, x: (B, S, W), elementwise over the W
 lanes, from y = 0, in fp32; the output is fp32.  The kernel
 (``csrc/rglru.cu``) replaces the TPU kernel
-``src/repro/kernels/rglru.py:_rglru_kernel``; it rounds each product and
-each sum apart, as the plain version does, so the two agree bit for bit.
+``src/repro/kernels/rglru.py:_rglru_kernel``.  It is a segmented scan over
+time: a block owns a strip of lanes and splits time into segments, each
+thread first reduces its segment to (decay product, end value), combines
+those of the segments before it into its carry-in, then reruns its segment
+from that carry.  Each product and sum is rounded apart, as in the plain
+version, so the first segment (``layout()[2]`` steps) equals the plain
+version bit for bit; later steps differ by the rounding of the carries
+only (within 1e-5 here), and a repeated call gives the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
+from typing import Tuple
 
 import torch
 
@@ -47,6 +55,16 @@ def rglru_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     cuda.check(status, "rglru")
     cuda.launches["rglru"] += 1
     return y
+
+
+@functools.cache
+def layout() -> Tuple[int, int, int]:
+    """The kernel's layout: (lanes a block, segments a super-chunk, steps a
+    segment), read from the constants ``LW``, ``T`` and ``L`` of
+    ``csrc/rglru.cu``; needs no build."""
+    src = (cuda.CSRC / "rglru.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+                 for name in ("LW", "T", "L"))
 
 
 def rglru_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ from repro.runtime import attest as jattest
 
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import crypto as tcrypto
-from repro_torch.kernels import cuda, ops, ref
+from repro_torch.kernels import cuda, ops, ref, rglru
 from repro_torch.kernels.mlstm import mlstm_cuda, mlstm_plain
 from repro_torch.kernels.rglru import rglru_cuda, rglru_plain
 from repro_torch.kernels.swa import swa_plain
@@ -226,15 +226,16 @@ def test_wrappers_refuse_mixed_devices_and_kernels_refuse_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
-# The tensor-core kernels' arithmetic, emulated in PyTorch on the CPU and
-# held against the Pallas kernels in interpret mode.  The emulations follow
-# the CUDA sources (csrc/swa.cu, csrc/mlstm.cu) step by step: which tiles
-# are visited, what is computed from the gates alone, where an fp32 operand
-# enters a 16-bit product as a hi/lo pair.  The CUDA kernels themselves are
-# held against the plain versions on the card by chip_smoke.py; nothing here
+# The kernels' arithmetic, emulated in PyTorch on the CPU and held against
+# the Pallas kernels in interpret mode.  The emulations follow the CUDA
+# sources (csrc/swa.cu, csrc/mlstm.cu, csrc/rglru.cu) step by step: which
+# tiles are visited, what is computed from the gates alone, where an fp32
+# operand enters a 16-bit product as a hi/lo pair, in which order the RG-LRU
+# scan's segments are combined.  The CUDA kernels themselves are held
+# against the plain versions on the card by chip_smoke.py; nothing here
 # notices when a .cu file drifts from its emulation, so a change to the
-# arithmetic of csrc/swa.cu or csrc/mlstm.cu changes the emulation below in
-# the same commit.
+# arithmetic of csrc/swa.cu, csrc/mlstm.cu or csrc/rglru.cu changes the
+# emulation below in the same commit.
 # ---------------------------------------------------------------------------
 NEG_INF_F = -1e30
 
@@ -398,6 +399,110 @@ def test_mlstm_two_pass_matches_pallas_and_plain_state(B, S, H, dh, chunk,
     for got_x, want_x in zip(state, plain_state):
         np.testing.assert_allclose(got_x.numpy(), want_x.numpy(),
                                    rtol=2e-4, atol=2e-4)
+
+
+def _rglru_segmented(a, x, Lw, T, L):
+    """csrc/rglru.cu's segmented scan.  A block owns Lw lanes (a ragged last
+    strip is masked) and walks super-chunks of T segments of L steps in
+    order; masked steps take a = 1, x = 0.  Pass A: each segment's end
+    value Y from 0 and its decay product A, in time order.  Carry: segment
+    k starts from c_k = A_{k-1} c_{k-1} + Y_{k-1}, c_0 the block's carry.
+    Pass C: the recurrence rerun from c_k; the last segment's last y is the
+    next super-chunk's carry.  Products and sums are rounded apart, as
+    __fmul_rn and __fadd_rn do.  Mirrors ``rglru_scan_kernel`` in
+    csrc/rglru.cu; the last test case below runs the kernel's own layout,
+    read from the source."""
+    B, S, W = a.shape
+    nW = -(-W // Lw) * Lw
+    n = -(-S // (T * L)) * T * L
+    av = torch.ones(B, n, nW)
+    xv = torch.zeros(B, n, nW)
+    av[:, :S, :W], xv[:, :S, :W] = a, x
+    av, xv = (v.reshape(B, n // (T * L), T, L, nW) for v in (av, xv))
+    y = torch.empty_like(av)
+    carry = torch.zeros(B, nW)
+    for sc in range(n // (T * L)):
+        A, Y = torch.ones(B, T, nW), torch.zeros(B, T, nW)
+        for i in range(L):
+            Y = av[:, sc, :, i] * Y + xv[:, sc, :, i]
+            A = A * av[:, sc, :, i]
+        c = [carry]
+        for k in range(1, T):
+            c.append(A[:, k - 1] * c[-1] + Y[:, k - 1])
+        c = torch.stack(c, dim=1)                              # (B, T, nW)
+        for i in range(L):
+            c = av[:, sc, :, i] * c + xv[:, sc, :, i]
+            y[:, sc, :, i] = c
+        carry = c[:, -1]
+    return y.reshape(B, n, nW)[:, :S, :W]
+
+
+def _rglru_inputs(B, S, W, seed, decay, scaled=True):
+    """a and x (B, S, W) fp32: a a sigmoid of a normal, near 1 (1 - 1e-3 u)
+    or near 0 (1e-3 u).  Near 1, ``scaled`` multiplies x by the model's
+    input normalisation beta = sqrt(1 - a²) (``_rglru_gates``), which keeps
+    |y| near 1."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(size=(B, S, W))
+    a = {"sigmoid": 1 / (1 + np.exp(-rng.standard_normal((B, S, W)))),
+         "near_one": 1 - 1e-3 * u,
+         "near_zero": 1e-3 * u}[decay].astype(np.float32)
+    x = rng.standard_normal((B, S, W))
+    if decay == "near_one" and scaled:
+        x = x * np.sqrt(1 - a.astype(np.float64) ** 2)
+    return a, x.astype(np.float32)
+
+
+@pytest.mark.parametrize("B,S,W,Lw,T,L,tb,decay", [
+    (1, 1, 40, 16, 4, 8, 12, "sigmoid"),       # one step; a ragged strip
+    (1, 7, 40, 16, 4, 8, 12, "sigmoid"),       # L - 1
+    (1, 8, 40, 16, 4, 8, 12, "sigmoid"),       # L
+    (1, 9, 40, 16, 4, 8, 12, "sigmoid"),       # L + 1
+    (1, 33, 40, 16, 4, 8, 20, "sigmoid"),      # T·L + 1: a second super-chunk
+    (1, 100, 40, 16, 4, 8, 36, "sigmoid"),     # ragged
+    (2, 77, 24, 8, 4, 8, 20, "sigmoid"),       # B = 2
+    (1, 4096, 16, 8, 8, 16, 100, "near_one"),  # the carry's error grows most
+    (1, 300, 16, 8, 4, 8, 20, "near_zero"),
+    (1, 600, 40, *rglru.layout(), 100, "sigmoid"),   # the kernel's layout
+])
+def test_rglru_segmented_matches_pallas_ref_and_plain(B, S, W, Lw, T, L, tb,
+                                                      decay):
+    # near 1, x is scaled as the model scales it: unscaled, the fp32
+    # references themselves miss the exact value by more than the limit
+    # (the next test)
+    a, x = _rglru_inputs(B, S, W, S + W + L, decay)
+    got = _rglru_segmented(_t(a), _t(x), Lw, T, L)
+    plain = rglru_plain(_t(a), _t(x))
+    assert got.shape == (B, S, W)
+    # the first segment is the plain recurrence, bit for bit
+    assert torch.equal(got[:, :L], plain[:, :L])
+    pallas = jops.rglru_scan(jnp.asarray(a), jnp.asarray(x), t_blk=tb)
+    jax_ref = jref.rglru_ref(jnp.asarray(a), jnp.asarray(x))
+    for want in (_np(pallas), _np(jax_ref), plain.numpy()):
+        np.testing.assert_allclose(got.numpy(), want, **RGLRU_TOL)
+
+
+def test_rglru_fp32_references_miss_exact_value_on_unscaled_near_one_input():
+    """The near-1 case above without the model's scaling of x: |y| grows to
+    about 90, and the sequential fp32 recurrence (``rglru_plain``) and the
+    JAX oracle (``jref.rglru_ref``) both miss a float64 recurrence on the
+    same fp32 inputs by more than RGLRU_TOL.  So on such input the limit
+    cannot tell a fault of the segmented scan from fp32 rounding, and the
+    segmented test scales x instead."""
+    B, S, W, L = 1, 4096, 16, 16
+    a, x = _rglru_inputs(B, S, W, S + W + L, "near_one", scaled=False)
+    exact = np.zeros((B, S, W))
+    y = np.zeros((B, W))
+    for t in range(S):
+        y = a[:, t].astype(np.float64) * y + x[:, t]
+        exact[:, t] = y
+    assert np.abs(exact).max() > 50
+    plain = rglru_plain(_t(a), _t(x)).numpy()
+    jax_ref = np.asarray(jref.rglru_ref(jnp.asarray(a), jnp.asarray(x)),
+                         np.float64)
+    limit = RGLRU_TOL["atol"] + RGLRU_TOL["rtol"] * np.abs(exact)
+    for got in (plain, jax_ref):
+        assert (np.abs(got - exact) > limit).any()
 
 
 @pytest.mark.parametrize("view,ok", [
