@@ -32,7 +32,18 @@
    recurrentgemma-2b and xlstm-1.3b.  Each path's launch counts are reset
    just before it and read just after; the script checks that the path
    launched each of its kernels, that the replicas agree, and that a decode
-   outside the server gives the same tokens.
+   outside the server gives the same tokens;
+8. trains qwen3-8b at full width, 4 of its 36 layers (bf16, random weights
+   from seed 0, AdamW with bf16 moments and an fp32 master), through the
+   port's uBFT-replicated trainer: three replicas, each with its own model
+   and optimizer state on the card, take 3 honest steps and one with a
+   Byzantine replica, 2 x 1024 tokens a step.  It checks that the forward-
+   only kernels refuse inputs that require grad, that honest fingerprints
+   agree on every step and the Byzantine replica is flagged, that every
+   loss is finite, that the fingerprint kernel ran exactly twice per leaf
+   per replica per step, and that on step 0's gradients it equals its
+   plain version; then holds a one-layer full-width fp32 loss and its
+   gradients on the card against the CPU.
 
 Any failure raises.  The line before the last is a JSON object of
 per-kernel numbers (a kernel timed at several shapes lists them under
@@ -52,6 +63,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -71,6 +83,7 @@ import torch.nn.functional as F  # noqa: E402
 try:
     from repro_torch.configs import get_config  # noqa: E402
     from repro_torch.core import crypto  # noqa: E402
+    from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
     from repro_torch.kernels import cuda, ops, rglru  # noqa: E402
     from repro_torch.kernels.fingerprint import (fingerprint_cuda,  # noqa: E402
                                                  fingerprint_plain)
@@ -78,9 +91,14 @@ try:
     from repro_torch.kernels.rglru import rglru_plain  # noqa: E402
     from repro_torch.kernels.swa import swa_plain  # noqa: E402
     from repro_torch.launch import serve  # noqa: E402
-    from repro_torch.models.common import Transformer, init_params  # noqa: E402
-    from repro_torch.models.transformer import prefill  # noqa: E402
+    from repro_torch.models.common import (Transformer,  # noqa: E402
+                                           default_blocks, init_params)
+    from repro_torch.models.transformer import lm_loss, prefill  # noqa: E402
+    from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
+                                   adamw_update)
     from repro_torch.runtime.attest import fingerprint_tree  # noqa: E402
+    from repro_torch.runtime.steps import make_train_step  # noqa: E402
+    from repro_torch.runtime.trainer import ReplicatedTrainer  # noqa: E402
 except ImportError as e:
     sys.exit(f"chip_smoke: the port is not importable from {ROOT / 'src'}: {e}")
 
@@ -98,6 +116,11 @@ RGLRU_TOL = 1e-5                       # tests/test_kernels.py's rtol = atol
 # plain version's only in the order of fp32 sums, whatever the input type
 MLSTM_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-4}
 MLSTM_STATE_TOL = 2e-4
+# phase 8: qwen3-8b's depth cut to fit three replicas' state on one card;
+# two sequences of 1024 tokens a step; the launcher's learning rate
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 2, 1024
+TRAIN_LR = 1e-3
 
 
 #: the per-shape numbers of a kernel's JSON entry
@@ -665,7 +688,8 @@ def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
           f"{arch}: decode outside the server disagrees with the replicas")
 
     n_prof = profile_turn * (prompt_len + gen_len) + prompt_len
-    busy = profile_decode(decoder, list(hist["s0"])[:n_prof], gen_len)
+    prof_hist = list(hist["s0"])[:n_prof]
+    busy = profile_call(lambda: decoder("profile", prof_hist, gen_len))
     prefill_ms = {}
     for n_prompt, pf_s, _ in calls:
         prefill_ms.setdefault(n_prompt, []).append(pf_s * 1e3)
@@ -680,7 +704,7 @@ def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
     print(f"    {arch} decode: median {np.median(decode_tok_s):.1f} tokens/s "
           f"(batch 1) [{card_line}]")
     if busy.get("device_ms"):
-        print(f"    {arch} one decode_fn call (prefill {busy['prompt']} + "
+        print(f"    {arch} one decode_fn call (prefill {n_prof} + "
               f"{gen_len} tokens) under torch.profiler: {busy['kernels']} "
               f"kernels, device busy {busy['device_ms']:.1f} of "
               f"{busy['wall_ms']:.1f} ms wall "
@@ -695,9 +719,9 @@ def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
     return launches
 
 
-def profile_decode(decoder, hist, n: int) -> dict:
-    """One ``decode_fn`` call under ``torch.profiler``: the summed device
-    time of its kernels against its wall time (the profiler's own host cost
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the summed device time
+    of its kernels against its wall time (the profiler's own host cost
     included, so the share is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -706,7 +730,7 @@ def profile_decode(decoder, hist, n: int) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            decoder("profile", hist, n)
+            fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         dev = [e for e in prof.key_averages()
@@ -714,9 +738,248 @@ def profile_decode(decoder, hist, n: int) -> dict:
     except RuntimeError as e:    # the profiler could not trace the card
         return {"error": str(e)}
     device_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    return {"prompt": len(hist), "wall_ms": wall_ms, "device_ms": device_ms,
+    # the device time of the kernels each PyTorch operator launched itself
+    by_op = sorted((e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU
+                    and e.self_device_time_total > 0),
+                   key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
-            "kernels": sum(e.count for e in dev)}
+            "kernels": sum(e.count for e in dev),
+            "top": [(e.key, e.count, e.self_device_time_total / 1e3)
+                    for e in by_op]}
+
+
+def check_forward_only() -> None:
+    """The SWA, RG-LRU and mLSTM wrappers refuse CUDA inputs that autograd
+    would differentiate, and launch nothing."""
+    before = dict(ops.launches)
+    x = torch.zeros(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    g = torch.zeros(1, 64, 2, device="cuda", requires_grad=True)
+    a = torch.zeros(1, 64, 128, device="cuda", requires_grad=True)
+    calls = {"swa": lambda: ops.sliding_window_attention(x, x, x, 16),
+             "rglru": lambda: ops.rglru_scan(a, a),
+             "mlstm": lambda: ops.mlstm_chunkwise_state(x, x, x, g, g, 64)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            check("forward only" in str(e), f"{name}: {e}")
+        else:
+            raise RuntimeError(f"chip_smoke: the {name} wrapper took inputs "
+                               f"that require grad")
+    check(ops.launches == before, f"a refused call launched: {ops.launches}")
+
+
+@contextlib.contextmanager
+def recorded_digests(out: list):
+    """Records every digest ``ops.fingerprint`` returns (the kernel's)."""
+    real = ops.fingerprint
+
+    def record(x):
+        out.append(real(x))
+        return out[-1]
+
+    ops.fingerprint = record
+    try:
+        yield out
+    finally:
+        ops.fingerprint = real
+
+
+def phase_train(card_line: str) -> int:
+    """qwen3-8b at full width, ``TRAIN_LAYERS`` layers, trained by three
+    replicas through the port's ``ReplicatedTrainer``; returns the
+    fingerprint launches of the run."""
+    t_phase = time.perf_counter()
+    serve.set_deterministic()
+    check_forward_only()
+    full = get_config("qwen3-8b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS,
+                              blocks=default_blocks(TRAIN_LAYERS))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # each replica its own copy: the same seed gives the same weights
+    models = [init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda") for _ in range(3)]
+    opts = [adamw_init(m.param_leaves(), opt_cfg) for m in models]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in models[0].param_leaves())
+    n_leaves = len(list(models[0].param_leaves()))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    step_fn = make_train_step(cfg, opt_cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    steps = {}          # (replica, step) -> (device ms, host ms, loss)
+
+    def batch(step: int) -> dict:
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in pipe.global_batch(step).items()}
+
+    def train_one(idx: int, step: int, data_epoch: int):
+        b = batch(step)
+        digests = []
+        record = recorded_digests(digests) if (idx, step) == (0, 0) \
+            else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start.record()
+        with record:
+            opts[idx], m = step_fn(models[idx], opts[idx], b)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t1) * 1e3
+        loss = float(m["loss"])
+        check(math.isfinite(loss), f"train step {step} replica {idx}: loss "
+                                   f"{loss}")
+        steps[idx, step] = (start.elapsed_time(end), host_ms, loss)
+        if digests:      # the kernel against its plain version, leaf by leaf
+            plain = [fingerprint_plain(p.grad)
+                     for p in models[0].param_leaves()]
+            check(digests[:n_leaves] == plain,
+                  f"fingerprint kernel != plain on step 0's gradients: "
+                  f"{digests[:n_leaves]} vs {plain}")
+        return m["grad_fp"], m["param_fp"], {"loss": loss}
+
+    rt = ReplicatedTrainer.build(train_one)
+    ops.reset_launches()
+    honest = rt.run_steps(3)
+    byzantine = rt.run_steps(1, byzantine_replica=1)
+    launches = dict(ops.launches)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_steps = len(honest) + len(byzantine)
+    for rec in honest:
+        check(len(set(rec["fps"].values())) == 1 and rec["flagged"] == [],
+              f"honest step {rec['step']}: fingerprints {rec['fps']}, "
+              f"flagged {rec['flagged']}")
+    flagged = byzantine[-1]["flagged"]
+    check("t1" in flagged and "t0" not in flagged,
+          f"Byzantine step: flagged {flagged}")
+    fps = byzantine[-1]["fps"]
+    check(fps[0] == fps[2] != fps[1], f"Byzantine step: fingerprints {fps}")
+    expect = {name: 0 for name in launches}
+    expect["fingerprint"] = 2 * n_leaves * 3 * n_steps
+    check(launches == expect, f"train path launched {launches}, expected "
+                              f"{expect}")
+
+    busy = profile_call(lambda: step_fn(models[0], opts[0], batch(n_steps)))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for s in range(n_steps):
+        print(f"    qwen3-8b train step {s}: loss "
+              + ", ".join(f"t{i} {steps[i, s][2]:.6f}" for i in range(3))
+              + "; device ms "
+              + ", ".join(f"{steps[i, s][0]:.1f}" for i in range(3))
+              + f" [{card_line}]")
+    medians = []
+    for i in range(3):     # step 0 warms up cuBLAS and the allocator
+        dev = float(np.median([steps[i, s][0] for s in range(1, n_steps)]))
+        host = float(np.median([steps[i, s][1] for s in range(1, n_steps)]))
+        medians.append(dev)
+        print(f"    qwen3-8b replica t{i}: median step {dev:.1f} ms (CUDA "
+              f"events; host {host:.1f} ms) over steps 1-{n_steps - 1}, "
+              f"{tokens / dev * 1e3:.0f} tokens/s [{card_line}]")
+    if busy.get("device_ms"):
+        print(f"    qwen3-8b one profiled train step: {busy['kernels']} "
+              f"kernels, device busy {busy['device_ms']:.1f} of "
+              f"{busy['wall_ms']:.1f} ms wall "
+              f"({100 * busy['busy_share']:.1f}%); the most device time "
+              f"by operator: "
+              + "; ".join(f"{name} x {n}: {ms:.1f} ms"
+                          for name, n, ms in busy["top"])
+              + f" [{card_line}]")
+    else:
+        print(f"    qwen3-8b device busy share not measured: {busy}")
+    parts = time_step_parts(models[0], opts[0], opt_cfg, batch(n_steps + 1))
+    print("    qwen3-8b step parts, median of 3, CUDA events: "
+          + ", ".join(f"{name} {ms:.1f} ms" for name, ms in parts.items())
+          + f" [{card_line}]")
+    print(f"[8] qwen3-8b {TRAIN_LAYERS} of {full.n_layers} layers bf16 "
+          f"({n_params / 1e9:.3f} B params, {n_leaves} leaves) trained by 3 "
+          f"replicas, {n_steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+          f"honest fingerprints identical, Byzantine t1 flagged, losses "
+          f"finite, fingerprint kernel == plain on step 0's gradients, "
+          f"launches {launches}; median step {np.median(medians):.1f} ms, "
+          f"{3 * tokens * n_steps} tokens in all, peak "
+          f"{peak_gb:.2f} GB allocated, set-up {setup_s:.1f} s [{card_line}]")
+    del rt, models, opts
+    torch.cuda.empty_cache()
+    check_one_layer_fp32(full)
+    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches["fingerprint"]
+
+
+def time_step_parts(model: Transformer, opt: dict, opt_cfg: AdamWConfig,
+                    b: dict) -> dict:
+    """The train step's three parts timed apart on one replica: the loss
+    and its backward, the AdamW update, the two fingerprint trees."""
+    params = list(model.param_leaves())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        lm_loss(model, b["inputs"], b["targets"]).backward()
+
+    parts = {"forward+backward": fwd_bwd,
+             "AdamW": lambda: adamw_update(params, [p.grad for p in params],
+                                           opt, opt_cfg),
+             "fingerprints": lambda: (fingerprint_tree(p.grad for p in params),
+                                      fingerprint_tree(params))}
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = float(np.median(times))
+    return out
+
+
+def check_one_layer_fp32(full) -> None:
+    """One layer at qwen3-8b's width in fp32, B 1, S 128: the loss and every
+    gradient leaf on the card against the same on the CPU."""
+    cfg = dataclasses.replace(full, n_layers=1, blocks=default_blocks(1),
+                              dtype="float32")
+    gpu = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
+                      device="cuda")
+    cpu = Transformer(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    b = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=1,
+                                 seed=0)).global_batch(0)
+    out = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        dev = model.embed.device
+        model.requires_grad_(True)
+        loss = lm_loss(model, torch.from_numpy(b["inputs"]).to(dev),
+                       torch.from_numpy(b["targets"]).to(dev))
+        loss.backward()
+        out[name] = [loss.detach()] + [p.grad for p in model.param_leaves()]
+    tol = 1e-3                                   # phase 6's fp32 limit
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(out["card"], out["cpu"])):
+        what = "loss" if i == 0 else f"grad {i - 1}"
+        _close(f"one-layer fp32 {what}", g.cpu(), c, tol)
+        rel = float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
+        check(rel <= tol, f"one-layer fp32 {what}: {rel} of its largest")
+        worst = max(worst, rel)
+    print(f"[8] qwen3-8b 1 layer fp32, B 1, S 128: loss "
+          f"{float(out['card'][0]):.6f} on the card, "
+          f"{float(out['cpu'][0]):.6f} on the CPU; loss and "
+          f"{len(out['card']) - 1} gradient leaves within {tol} (largest "
+          f"difference {worst:.3g} of its leaf's largest value)")
+    del gpu, cpu, out
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -751,6 +1014,7 @@ def main() -> int:
                           gen_len, kernels, prof)
         for name, n in got.items():
             launches[name] += n
+    launches["fingerprint"] += phase_train(card_line)
     check(all(n > 0 for n in launches.values()),
           f"a kernel was never launched on the main paths: {launches}")
     kernels = [dict({k: row[k] for k in ("name", "route", "source", "replaces")},

@@ -4,17 +4,21 @@ The port keeps JAX's layout (weights ``(in, out)``, the pytree's names,
 per-group stacking) and each leaf's dtype (the RG-LRU's ``lam`` stays fp32
 in a bf16 model), so conversion is a plain copy.  numpy has no bf16 of
 its own: a bf16 array (ml_dtypes' ``bfloat16``) crosses as an int16 view and
-is viewed back as ``torch.bfloat16``, which keeps every bit.
+is viewed back as ``torch.bfloat16``, which keeps every bit; on the way
+back (``numpy_from_tensor``) a bf16 tensor leaves as that int16 view.
+The optimizer state crosses leaf by leaf in ``jax.tree.leaves`` order
+(``tree_leaves``), which is ``Transformer.param_leaves()`` order.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig, Transformer
+from repro_torch.optim.adamw import State
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -22,6 +26,26 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A tensor (a parameter, a gradient, a state leaf) as numpy, bf16 as
+    its int16 view (the same bits), for comparisons with the JAX
+    package's arrays."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nest of dicts, tuples and lists in
+    ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for sub in tree for x in tree_leaves(sub)]
+    return [tree]
 
 
 def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig,
@@ -51,3 +75,25 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig,
                 for k, dst in pos.items():
                     put(dst, src[k], f"groups[{g}][{i}][{k}]")
     return model
+
+
+def opt_state_from_jax(np_state: Mapping[str, Any], model: Transformer,
+                       device=None) -> State:
+    """The JAX package's AdamW state (``mu``, ``nu``, ``master`` trees and
+    ``count``, given as numpy arrays) as the port's ``optim.adamw`` state
+    for ``model``'s parameters."""
+    params = list(model.param_leaves())
+    state: Dict[str, Any] = {}
+    for key in ("mu", "nu", "master"):
+        leaves = tree_leaves(np_state[key])
+        if len(leaves) != len(params):
+            raise ValueError(f"{key}: JAX has {len(leaves)} leaves, the port "
+                             f"{len(params)}")
+        state[key] = [tensor_from_numpy(a, device) for a in leaves]
+        for i, (t, p) in enumerate(zip(state[key], params)):
+            if t.shape != p.shape:
+                raise ValueError(f"{key}[{i}]: JAX has {tuple(t.shape)}, "
+                                 f"the port {tuple(p.shape)}")
+    state["count"] = tensor_from_numpy(
+        np.asarray(np_state["count"], np.int32), device)
+    return state

@@ -10,6 +10,7 @@ from repro_torch.models.common import ModelConfig
 
 ARCHS: Dict[str, str] = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }

@@ -1,7 +1,10 @@
 """Public wrappers around the CUDA kernels.
 
 A wrapper launches its kernel for a CUDA tensor and runs the kernel's plain
-version for a CPU tensor; there is no fallback from one to the other.
+version for a CPU tensor; there is no fallback from one to the other.  The
+SWA, RG-LRU and mLSTM kernels are forward only: their wrappers raise for
+CUDA inputs that autograd would differentiate, rather than return a result
+that silently drops the gradient.
 ``launches`` counts kernel launches by name (see ``kernels.cuda``).
 """
 
@@ -33,11 +36,18 @@ def _on_cuda(*xs: torch.Tensor) -> bool:
                      f"tensors, the plain versions CPU tensors")
 
 
+def _forward_only(name: str, *xs: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(f"the {name} kernel is forward only: it cannot "
+                           f"take inputs that require grad")
+
+
 def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, window: int) -> torch.Tensor:
     """GQA sliding-window attention.
     q: (B, S, H, dh); k/v: (B, S, KV, dh) -> (B, S, H, dh)."""
     if _on_cuda(q, k, v):
+        _forward_only("swa", q, k, v)
         return swa_cuda(q, k, v, window)
     return swa_plain(q, k, v, window)
 
@@ -50,6 +60,7 @@ def mlstm_chunkwise_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     does).  q/k/v: (B, S, H, dh); it/ft: (B, S, H) fp32 -> h (B, S, H, dh)
     and (C, n, m) in fp32."""
     if _on_cuda(q, k, v, it, ft):
+        _forward_only("mlstm", q, k, v, it, ft)
         return mlstm_cuda(q, k, v, it, ft, chunk)
     return mlstm_plain(q, k, v, it, ft, chunk)
 
@@ -77,6 +88,7 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Gated linear recurrence y_t = a_t·y_{t-1} + x_t from y = 0, in fp32.
     a/x: (B, S, W) fp32 -> y (B, S, W) fp32."""
     if _on_cuda(a, x):
+        _forward_only("rglru", a, x)
         return rglru_cuda(a, x)
     return rglru_plain(a, x)
 

@@ -8,6 +8,10 @@ ported from ``repro.models.attention``.
   covers the JAX path's full-attention branch for short prompts.
 * **global layers (prefill)** loop over query chunks, each attending to all
   keys with a causal mask.
+* **training** (``attention_train``) keeps JAX's choice: the plain banded
+  form for window layers longer than their window, chunked causal
+  attention otherwise.  It never reaches a kernel: the kernels are forward
+  only, and autograd differentiates the plain versions.
 * **decode**: one query token against a KV cache; window layers keep a ring
   buffer of w slots (global position p in slot p % w), global layers the
   full sequence.  Decode writes the new key and value into the cache in
@@ -24,9 +28,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.swa import swa_plain as banded_window_attention
 from repro_torch.models.common import ModelConfig, rms_norm, rope
 
-__all__ = ["NEG_INF", "banded_window_attention", "decode_attention",
-           "full_attention_chunked", "init_cache", "prefill_attention",
-           "qkv_project"]
+__all__ = ["NEG_INF", "attention_train", "banded_window_attention",
+           "decode_attention", "full_attention_chunked", "init_cache",
+           "prefill_attention", "qkv_project"]
 
 NEG_INF = -1e30
 Cache = Dict[str, torch.Tensor]
@@ -83,6 +87,15 @@ def full_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask, s, NEG_INF)
         outs.append(_gqa_context(torch.softmax(s, dim=-1), v))
     return torch.cat(outs, dim=1).reshape(B, S, H, dh)
+
+
+def attention_train(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """Attention of the training forward, with the JAX package's choice of
+    path; q: (B, S, H, dh), k/v: (B, S, KV, dh) -> (B, S, H, dh)."""
+    if window is not None and q.shape[1] > window:
+        return banded_window_attention(q, k, v, window)
+    return full_attention_chunked(q, k, v, cfg.q_chunk)
 
 
 def init_cache(cfg: ModelConfig, window: Optional[int], batch: int,

@@ -48,6 +48,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     q_chunk: int = 512
     mlstm_chunk: int = 256
+    attest: bool = True          # fingerprint grads/params each step (uBFT)
 
     @property
     def dh(self) -> int:
@@ -67,6 +68,11 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: pattern program has {len(self.layer_list())} "
                 f"layers, config says {self.n_layers}")
+
+
+def default_blocks(n_layers: int) -> Tuple:
+    """Uniform full-attention stack."""
+    return (((LayerSpec("attn"),), n_layers),)
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +177,8 @@ class Transformer(nn.Module):
     head, named as the JAX pytree: ``embed``, ``out_norm`` and
     ``groups[g][pos][name]`` with a leading ``reps`` axis.  The forward
     passes are the plain functions of ``repro_torch.models.transformer``.
+    Parameters start frozen, as serving wants them; ``requires_grad_()``
+    makes them trainable (the train step of ``runtime.steps`` does).
     """
 
     def __init__(self, cfg: ModelConfig, device=None):

@@ -1,10 +1,12 @@
 """Model assembly for stacks of attention and recurrent layers, ported from
 ``repro.models.transformer``: embedding, logits, caches, prefill and greedy
 decode steps, with the per-kind dispatch of ``apply_layer_prefill``,
-``apply_layer_decode`` and ``init_layer_state``.  JAX's ``lax.scan`` over a
-group's ``reps`` becomes a Python loop; the caches keep JAX's nesting (per
-group, per pattern position, a dict of tensors stacked over ``reps``):
-attention KV caches, or the state of a recurrent layer.
+``apply_layer_decode`` and ``init_layer_state``; and the training forward
+and loss (``forward_train``, ``lm_loss``) for dense attention stacks.
+JAX's ``lax.scan`` over a group's ``reps`` becomes a Python loop; the
+caches keep JAX's nesting (per group, per pattern position, a dict of
+tensors stacked over ``reps``): attention KV caches, or the state of a
+recurrent layer.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import recurrent as rec
-from repro_torch.models.attention import (decode_attention, init_cache,
-                                          prefill_attention)
+from repro_torch.models.attention import (attention_train, decode_attention,
+                                          init_cache, prefill_attention,
+                                          qkv_project)
 from repro_torch.models.common import (LayerSpec, ModelConfig, Transformer,
                                        rms_norm, weak_scalar)
 from repro_torch.models.moe import dense_ffn
@@ -158,3 +161,60 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
                                         _layer(cache, r), position)
     logits = logits_fn(model, x)
     return logits[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+def apply_layer_train(cfg: ModelConfig, spec: LayerSpec,
+                      p: Dict[str, torch.Tensor], x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """One layer of the training forward.  Only attention layers train so
+    far: the recurrent kinds' prefill goes through forward-only kernels."""
+    if spec.kind != "attn":
+        raise NotImplementedError(
+            f"training through {spec.kind} layers is not ported yet")
+    B, S = x.shape[:2]
+    q, k, v = qkv_project(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps),
+                          positions)
+    out = attention_train(cfg, q, k, v, spec.window)
+    x = x + out.reshape(B, S, cfg.n_heads * cfg.dh) @ p["wo"]
+    return _ffn_part(cfg, p, x)
+
+
+def apply_groups_train(model: Transformer, x: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """Every layer in order.  Each stacked leaf is unbound once, so that its
+    gradient is assembled by one stack and not by a zero-filled copy of the
+    whole stack for every layer, as indexing it per layer would give."""
+    cfg = model.cfg
+    for (pattern, reps), stacked_g in zip(cfg.blocks, model.groups):
+        per_pos = [{k: t.unbind(0) for k, t in stacked.items()}
+                   for stacked in stacked_g]
+        for r in range(reps):
+            for spec, layers in zip(pattern, per_pos):
+                x = apply_layer_train(cfg, spec,
+                                      {k: t[r] for k, t in layers.items()},
+                                      x, positions)
+    return x
+
+
+def forward_train(model: Transformer, inputs: torch.Tensor) -> torch.Tensor:
+    """inputs: (B, S) integer tokens -> (B, S, V) logits."""
+    B, S = inputs.shape
+    x = embed(model, inputs)
+    positions = torch.arange(S, device=inputs.device).expand(B, S)
+    return logits_fn(model, apply_groups_train(model, x, positions))
+
+
+def lm_loss(model: Transformer, inputs: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, the JAX package's fused stable form:
+    the max is taken without gradient and subtracted in the logits' dtype,
+    then the rest runs in fp32."""
+    logits = forward_train(model, inputs)
+    lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
+    shifted = (logits - lmax).float()
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    tgt = torch.gather(shifted, -1, targets[..., None].long())[..., 0]
+    return torch.mean(lse - tgt)

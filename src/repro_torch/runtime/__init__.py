@@ -1,1 +1,2 @@
-"""Replicated token server (copied) and device-side attestation (ported)."""
+"""Replicated token server and trainer (copied); device-side attestation
+and step builders (ported)."""

@@ -24,8 +24,8 @@ def fingerprint_array(x: torch.Tensor) -> int:
 
 
 def fingerprint_tree(leaves: Iterable[torch.Tensor]) -> int:
-    """uint32 digest of a sequence of leaves, e.g. ``model.param_leaves()``:
-    acc = acc·31 + h + i mod 2**32."""
+    """uint32 digest of a sequence of leaves, e.g. ``model.param_leaves()``
+    or their gradients in that order: acc = acc·31 + h + i mod 2**32."""
     acc = 0
     for i, leaf in enumerate(leaves):
         acc = (acc * 31 + fingerprint_array(leaf) + i) & _M32

@@ -1,0 +1,65 @@
+"""Step builders, ported from ``repro.runtime.steps``.
+
+  make_train_step(cfg, opt_cfg)  — fwd + bwd + AdamW + attestation fingerprints
+  make_prefill(cfg)              — prompt ingestion, returns last logits + caches
+  make_serve_step(cfg)           — one decode token against caches/state
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.common import ModelConfig, Transformer
+from repro_torch.models.transformer import decode_step, lm_loss, prefill
+from repro_torch.optim.adamw import AdamWConfig, State, adamw_update
+from repro_torch.runtime.attest import fingerprint_tree
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
+    """``train_step(model, opt_state, batch) -> (opt_state, metrics)``: the
+    loss and its gradients (left in each parameter's ``.grad``), one AdamW
+    step written into the model and the state, and with ``cfg.attest`` the
+    digests ``grad_fp`` of the gradients and ``param_fp`` of the new
+    parameters, both in ``param_leaves()`` order.  ``batch`` holds integer
+    ``inputs`` and ``targets`` of shape (B, S) on the model's device."""
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(model: Transformer, opt_state: State,
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[State, Dict[str, object]]:
+        if model.cfg != cfg:
+            raise ValueError(f"the step was built for {cfg.name}, the model "
+                             f"is {model.cfg.name}")
+        params = list(model.param_leaves())
+        model.requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = lm_loss(model, batch["inputs"], batch["targets"])
+            loss.backward()
+        grads = [p.grad for p in params]
+        opt_state = adamw_update(params, grads, opt_state, opt_cfg)
+        metrics: Dict[str, object] = {"loss": loss.detach()}
+        if cfg.attest:
+            # uBFT attestation: replicas CTBcast these (see runtime.trainer)
+            metrics["grad_fp"] = fingerprint_tree(grads)
+            metrics["param_fp"] = fingerprint_tree(params)
+        return opt_state, metrics
+
+    return train_step
+
+
+def make_prefill(cfg: ModelConfig, max_seq: Optional[int] = None):
+    def prefill_step(model: Transformer, inputs: torch.Tensor):
+        return prefill(model, inputs, max_seq=max_seq)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    def serve_step(model: Transformer, caches, tokens: torch.Tensor,
+                   position: int):
+        return decode_step(model, caches, tokens, position)
+
+    return serve_step

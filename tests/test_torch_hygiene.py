@@ -17,7 +17,8 @@ SRC = ROOT / "src"
 COPIED = [f"core/{m}.py" for m in (
     "consensus", "smr", "crypto", "ctbcast", "tbcast", "registers", "node",
     "substrate", "health", "membership")] + [
-    "sim/events.py", "sim/net.py", "runtime/server.py"]
+    "sim/events.py", "sim/net.py", "runtime/server.py", "runtime/trainer.py",
+    "data/__init__.py", "data/pipeline.py"]
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
 
