@@ -34,16 +34,32 @@
    launched each of its kernels, that the replicas agree, and that a decode
    outside the server gives the same tokens;
 8. trains qwen3-8b at full width, 4 of its 36 layers (bf16, random weights
-   from seed 0, AdamW with bf16 moments and an fp32 master), through the
-   port's uBFT-replicated trainer: three replicas, each with its own model
-   and optimizer state on the card, take 3 honest steps and one with a
-   Byzantine replica, 2 x 1024 tokens a step.  It checks that the forward-
-   only kernels refuse inputs that require grad, that honest fingerprints
-   agree on every step and the Byzantine replica is flagged, that every
-   loss is finite, that the fingerprint kernel ran exactly twice per leaf
-   per replica per step, and that on step 0's gradients it equals its
-   plain version; then holds a one-layer full-width fp32 loss and its
-   gradients on the card against the CPU.
+   from seed 0, AdamW with bf16 moments and an fp32 master, the config's
+   remat "full"), through the port's uBFT-replicated trainer: three
+   replicas, each with its own model and optimizer state on the card, take
+   3 honest steps and one with a Byzantine replica, 2 x 1024 tokens a
+   step.  It checks that the forward-only kernels refuse inputs that
+   require grad, that honest fingerprints agree on every step and the
+   Byzantine replica is flagged, that every loss is finite, that the
+   fingerprint kernel ran exactly twice per leaf per replica per step and
+   no other kernel ran, and that on step 0's gradients it equals its plain
+   version; then holds a one-layer full-width fp32 loss and its gradients
+   on the card against the CPU;
+9. trains the recurrent archs: (a) recurrentgemma-2b at full width, one
+   (RG-LRU, RG-LRU, local attention) group of its 26 layers, through the
+   same three replicas and checks (2 x 1024 tokens a step, remat "full");
+   then the first step from seed 0 with remat "none" and "full" must give
+   the same loss and digests (peak memory of each printed); (b) xlstm-1.3b
+   at full width, 8 of its 48 blocks, 2 x 512 tokens a step, through the
+   train launcher (``launch.train.train``): 4 steps with a checkpoint every
+   2, against 2 steps, a drop of every model and a resume for 2 more.  The
+   step-4 checkpoint files, digests, final fingerprints and losses must be
+   equal, the coordinators' agreed cuts too; a flipped byte in the last
+   checkpoint must fail its load; the fingerprint kernel must have run
+   exactly twice per leaf per replica per step, once per leaf per save and
+   once per leaf per load, and no other kernel; save and load GB/s are
+   printed; (c) one full-width group of each recurrent arch in fp32: the
+   loss and every gradient on the card against the CPU.
 
 Any failure raises.  The line before the last is a JSON object of
 per-kernel numbers (a kernel timed at several shapes lists them under
@@ -61,12 +77,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import hashlib
 import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -81,6 +101,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 try:
+    from repro_torch.checkpoint import load_checkpoint  # noqa: E402
     from repro_torch.configs import get_config  # noqa: E402
     from repro_torch.core import crypto  # noqa: E402
     from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
@@ -91,6 +112,7 @@ try:
     from repro_torch.kernels.rglru import rglru_plain  # noqa: E402
     from repro_torch.kernels.swa import swa_plain  # noqa: E402
     from repro_torch.launch import serve  # noqa: E402
+    from repro_torch.launch.train import train as train_launcher  # noqa: E402
     from repro_torch.models.common import (Transformer,  # noqa: E402
                                            default_blocks, init_params)
     from repro_torch.models.transformer import lm_loss, prefill  # noqa: E402
@@ -121,6 +143,12 @@ MLSTM_STATE_TOL = 2e-4
 TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024
 TRAIN_LR = 1e-3
+# phase 9: recurrentgemma-2b cut to one (RG-LRU, RG-LRU, local attention)
+# group, 2 x 1024 tokens a step; xlstm-1.3b cut to two (3 mLSTM, sLSTM)
+# groups, 2 x 512 tokens a step
+RG_BATCH, RG_SEQ = 2, 1024
+XLSTM_GROUPS = 2
+XLSTM_BATCH, XLSTM_SEQ = 2, 512
 
 
 #: the per-shape numbers of a kernel's JSON entry
@@ -578,10 +606,7 @@ def compare_layers(arch: str, S: int, tol: float, expect: dict,
     that the two differ only in the kernels, which get the main path's
     strides and padding.  ``expect`` is the kernel launches the group
     makes."""
-    full = get_config(arch)
-    pattern = full.blocks[0][0]
-    cfg = dataclasses.replace(full, n_layers=len(pattern),
-                              blocks=((pattern, 1),), dtype=dtype)
+    cfg = dataclasses.replace(first_group(arch), dtype=dtype)
     gpu = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
                       device="cuda")
     max_seq = S + 8
@@ -798,6 +823,26 @@ def phase_train(card_line: str) -> int:
     full = get_config("qwen3-8b")
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS,
                               blocks=default_blocks(TRAIN_LAYERS))
+    n_fp = train_replicated(card_line, "[8]", cfg, full.n_layers, TRAIN_BATCH,
+                            TRAIN_SEQ)
+    check_fp32_grads("[8]", dataclasses.replace(full, n_layers=1,
+                                                blocks=default_blocks(1)))
+    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card_line}]")
+    return n_fp
+
+
+def train_replicated(card_line: str, tag: str, cfg, full_layers: int,
+                     batch_size: int, seq: int) -> int:
+    """``cfg`` trained by three replicas through the port's
+    ``ReplicatedTrainer``, each with its own model and optimizer state on
+    the card from seed 0: 3 honest steps, then one with replica 1
+    Byzantine, ``batch_size`` x ``seq`` tokens a step.  Checks identical
+    honest fingerprints, the flag, finite losses, that the fingerprint
+    kernel ran exactly twice per leaf per replica per step and no other
+    kernel ran, and that it equals its plain version on step 0's
+    gradients; returns the fingerprint launches of the run."""
+    name = cfg.name
     opt_cfg = AdamWConfig(lr=TRAIN_LR)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -810,8 +855,8 @@ def phase_train(card_line: str) -> int:
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in models[0].param_leaves())
     n_leaves = len(list(models[0].param_leaves()))
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                    global_batch=TRAIN_BATCH, seed=0))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch_size, seed=0))
     step_fn = make_train_step(cfg, opt_cfg)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -835,8 +880,8 @@ def phase_train(card_line: str) -> int:
         end.synchronize()
         host_ms = (time.perf_counter() - t1) * 1e3
         loss = float(m["loss"])
-        check(math.isfinite(loss), f"train step {step} replica {idx}: loss "
-                                   f"{loss}")
+        check(math.isfinite(loss), f"{name} train step {step} replica {idx}: "
+                                   f"loss {loss}")
         steps[idx, step] = (start.elapsed_time(end), host_ms, loss)
         if digests:      # the kernel against its plain version, leaf by leaf
             plain = [fingerprint_plain(p.grad)
@@ -857,22 +902,23 @@ def phase_train(card_line: str) -> int:
     n_steps = len(honest) + len(byzantine)
     for rec in honest:
         check(len(set(rec["fps"].values())) == 1 and rec["flagged"] == [],
-              f"honest step {rec['step']}: fingerprints {rec['fps']}, "
+              f"{name} honest step {rec['step']}: fingerprints {rec['fps']}, "
               f"flagged {rec['flagged']}")
     flagged = byzantine[-1]["flagged"]
     check("t1" in flagged and "t0" not in flagged,
-          f"Byzantine step: flagged {flagged}")
+          f"{name} Byzantine step: flagged {flagged}")
     fps = byzantine[-1]["fps"]
-    check(fps[0] == fps[2] != fps[1], f"Byzantine step: fingerprints {fps}")
-    expect = {name: 0 for name in launches}
+    check(fps[0] == fps[2] != fps[1],
+          f"{name} Byzantine step: fingerprints {fps}")
+    expect = {k: 0 for k in launches}
     expect["fingerprint"] = 2 * n_leaves * 3 * n_steps
-    check(launches == expect, f"train path launched {launches}, expected "
-                              f"{expect}")
+    check(launches == expect, f"{name} train path launched {launches}, "
+                              f"expected {expect}")
 
     busy = profile_call(lambda: step_fn(models[0], opts[0], batch(n_steps)))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * seq
     for s in range(n_steps):
-        print(f"    qwen3-8b train step {s}: loss "
+        print(f"    {name} train step {s}: loss "
               + ", ".join(f"t{i} {steps[i, s][2]:.6f}" for i in range(3))
               + "; device ms "
               + ", ".join(f"{steps[i, s][0]:.1f}" for i in range(3))
@@ -882,36 +928,35 @@ def phase_train(card_line: str) -> int:
         dev = float(np.median([steps[i, s][0] for s in range(1, n_steps)]))
         host = float(np.median([steps[i, s][1] for s in range(1, n_steps)]))
         medians.append(dev)
-        print(f"    qwen3-8b replica t{i}: median step {dev:.1f} ms (CUDA "
+        print(f"    {name} replica t{i}: median step {dev:.1f} ms (CUDA "
               f"events; host {host:.1f} ms) over steps 1-{n_steps - 1}, "
               f"{tokens / dev * 1e3:.0f} tokens/s [{card_line}]")
     if busy.get("device_ms"):
-        print(f"    qwen3-8b one profiled train step: {busy['kernels']} "
+        print(f"    {name} one profiled train step: {busy['kernels']} "
               f"kernels, device busy {busy['device_ms']:.1f} of "
               f"{busy['wall_ms']:.1f} ms wall "
               f"({100 * busy['busy_share']:.1f}%); the most device time "
               f"by operator: "
-              + "; ".join(f"{name} x {n}: {ms:.1f} ms"
-                          for name, n, ms in busy["top"])
+              + "; ".join(f"{op} x {n}: {ms:.1f} ms"
+                          for op, n, ms in busy["top"])
               + f" [{card_line}]")
     else:
-        print(f"    qwen3-8b device busy share not measured: {busy}")
+        print(f"    {name} device busy share not measured: {busy}")
     parts = time_step_parts(models[0], opts[0], opt_cfg, batch(n_steps + 1))
-    print("    qwen3-8b step parts, median of 3, CUDA events: "
-          + ", ".join(f"{name} {ms:.1f} ms" for name, ms in parts.items())
+    print(f"    {name} step parts, median of 3, CUDA events: "
+          + ", ".join(f"{part} {ms:.1f} ms" for part, ms in parts.items())
           + f" [{card_line}]")
-    print(f"[8] qwen3-8b {TRAIN_LAYERS} of {full.n_layers} layers bf16 "
-          f"({n_params / 1e9:.3f} B params, {n_leaves} leaves) trained by 3 "
-          f"replicas, {n_steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
-          f"honest fingerprints identical, Byzantine t1 flagged, losses "
-          f"finite, fingerprint kernel == plain on step 0's gradients, "
-          f"launches {launches}; median step {np.median(medians):.1f} ms, "
-          f"{3 * tokens * n_steps} tokens in all, peak "
-          f"{peak_gb:.2f} GB allocated, set-up {setup_s:.1f} s [{card_line}]")
+    print(f"{tag} {name} {cfg.n_layers} of {full_layers} layers bf16, remat "
+          f"{cfg.remat} ({n_params / 1e9:.3f} B params, {n_leaves} leaves) "
+          f"trained by 3 replicas, {n_steps} steps of {batch_size} x {seq} "
+          f"tokens: honest fingerprints identical, Byzantine t1 flagged, "
+          f"losses finite, fingerprint kernel == plain on step 0's "
+          f"gradients, launches {launches}; median step "
+          f"{np.median(medians):.1f} ms, {3 * tokens * n_steps} tokens in "
+          f"all, peak {peak_gb:.2f} GB allocated, set-up {setup_s:.1f} s "
+          f"[{card_line}]")
     del rt, models, opts
     torch.cuda.empty_cache()
-    check_one_layer_fp32(full)
-    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s")
     return launches["fingerprint"]
 
 
@@ -946,11 +991,11 @@ def time_step_parts(model: Transformer, opt: dict, opt_cfg: AdamWConfig,
     return out
 
 
-def check_one_layer_fp32(full) -> None:
-    """One layer at qwen3-8b's width in fp32, B 1, S 128: the loss and every
-    gradient leaf on the card against the same on the CPU."""
-    cfg = dataclasses.replace(full, n_layers=1, blocks=default_blocks(1),
-                              dtype="float32")
+def check_fp32_grads(tag: str, cfg) -> None:
+    """``cfg`` in fp32 at B 1, S 128: the loss and every gradient leaf on
+    the card against the same on the CPU, within phase 6's fp32 limit, also
+    of each leaf's largest value."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
     gpu = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
                       device="cuda")
     cpu = Transformer(cfg, device="cpu")
@@ -969,17 +1014,193 @@ def check_one_layer_fp32(full) -> None:
     worst = 0.0
     for i, (g, c) in enumerate(zip(out["card"], out["cpu"])):
         what = "loss" if i == 0 else f"grad {i - 1}"
-        _close(f"one-layer fp32 {what}", g.cpu(), c, tol)
-        rel = float((g.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30))
-        check(rel <= tol, f"one-layer fp32 {what}: {rel} of its largest")
+        c = c.cuda()               # compared on the card: a few GB a leaf
+        _close(f"{cfg.name} fp32 {what}", g, c, tol)
+        rel = float((g - c).abs().max() / c.abs().max().clamp_min(1e-30))
+        check(rel <= tol, f"{cfg.name} fp32 {what}: {rel} of its largest")
         worst = max(worst, rel)
-    print(f"[8] qwen3-8b 1 layer fp32, B 1, S 128: loss "
-          f"{float(out['card'][0]):.6f} on the card, "
-          f"{float(out['cpu'][0]):.6f} on the CPU; loss and "
+    kinds = "+".join(spec.kind for spec in cfg.layer_list())
+    print(f"{tag} {cfg.name} {cfg.n_layers} layers ({kinds}) fp32, remat "
+          f"{cfg.remat}, B 1, S 128: loss {float(out['card'][0]):.6f} on the "
+          f"card, {float(out['cpu'][0]):.6f} on the CPU; loss and "
           f"{len(out['card']) - 1} gradient leaves within {tol} (largest "
           f"difference {worst:.3g} of its leaf's largest value)")
     del gpu, cpu, out
     torch.cuda.empty_cache()
+
+
+def first_group(arch: str, reps: int = 1):
+    """``arch`` at full width, cut to ``reps`` repetitions of its first
+    group's pattern."""
+    full = get_config(arch)
+    pattern = full.blocks[0][0]
+    return dataclasses.replace(full, n_layers=len(pattern) * reps,
+                               blocks=((pattern, reps),))
+
+
+def phase_recurrent_train(card_line: str) -> int:
+    """Phase 9: (a) recurrentgemma-2b through the replicated trainer, and
+    remat "none" against "full"; (b) xlstm-1.3b through the train launcher
+    with checkpoints and a resume; (c) one full-width group of each
+    recurrent arch in fp32 on the card against the CPU.  Returns the
+    fingerprint launches of (a) and (b)."""
+    t_phase = time.perf_counter()
+    full = get_config("recurrentgemma-2b")
+    cfg = first_group("recurrentgemma-2b")
+    n_fp = train_replicated(card_line, "[9a]", cfg, full.n_layers, RG_BATCH,
+                            RG_SEQ)
+    check_remat_bits(card_line, cfg)
+    print(f"[9a] took {time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    n_fp += train_resumed(card_line)
+    t_c = time.perf_counter()
+    for arch in ("recurrentgemma-2b", "xlstm-1.3b"):
+        check_fp32_grads("[9c]", first_group(arch))
+    print(f"[9c] took {time.perf_counter() - t_c:.1f} s [{card_line}]")
+    print(f"[9] phase 9 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card_line}]")
+    return n_fp
+
+
+def check_remat_bits(card_line: str, cfg) -> None:
+    """The first step from seed 0, once with remat "none" and once with
+    "full": equal loss and digests; the peak memory of each."""
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=RG_SEQ,
+                                    global_batch=RG_BATCH, seed=0))
+    b = {k: torch.from_numpy(v).cuda() for k, v in pipe.global_batch(0).items()}
+    out = {}
+    for remat in ("none", "full"):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = init_params(c, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        opt = adamw_init(model.param_leaves(), AdamWConfig(lr=TRAIN_LR))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        opt, m = make_train_step(c, AdamWConfig(lr=TRAIN_LR))(model, opt, b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        out[remat] = (float(m["loss"]), m["grad_fp"], m["param_fp"])
+        print(f"    {cfg.name} remat {remat}: step 0 loss {out[remat][0]:.6f}, "
+              f"grad_fp {m['grad_fp']:#010x}, param_fp {m['param_fp']:#010x}; "
+              f"peak {peak / 1e9:.2f} GB allocated, {(peak - base) / 1e9:.2f} "
+              f"GB above the model and optimizer state; {secs * 1e3:.0f} ms "
+              f"wall (first step) [{card_line}]")
+        del model, opt, m
+        torch.cuda.empty_cache()
+    check(out["none"] == out["full"], f"remat changed the step: {out}")
+    print(f"[9a] {cfg.name} remat none == full: loss, grad_fp and param_fp "
+          f"identical")
+
+
+def train_resumed(card_line: str) -> int:
+    """xlstm-1.3b cut to ``XLSTM_GROUPS`` groups through
+    ``launch.train.train``: run A takes 4 steps with a checkpoint every 2;
+    run B takes 2, is dropped, and resumes from its checkpoint for 2 more.
+    Checks that both end in the same bits, that the coordinators agreed
+    the same cuts, that a flipped byte fails the load, and the exact
+    fingerprint launches; returns those of A and B."""
+    t_b = time.perf_counter()
+    full = get_config("xlstm-1.3b")
+    cfg = first_group("xlstm-1.3b", XLSTM_GROUPS)
+    leaves = list(Transformer(cfg, device="meta").param_leaves())
+    n_params, n_leaves = sum(p.numel() for p in leaves), len(leaves)
+    ckpt_bytes = 10 * n_params       # bf16 weights, mu, nu; fp32 master
+    tmp = Path(tempfile.mkdtemp(prefix=".ckpt_", dir=ROOT))
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free > 3 * ckpt_bytes, f"{free / 1e9:.1f} GB free under {tmp}, "
+              f"{3 * ckpt_bytes / 1e9:.1f} GB needed for two checkpoints and "
+              f"a margin")
+        kw = dict(batch=XLSTM_BATCH, seq=XLSTM_SEQ, lr=TRAIN_LR,
+                  ckpt_every=2, device="cuda")
+        ops.reset_launches()
+        a = train_launcher(cfg, steps=4, ckpt_dir=str(tmp / "a"), **kw)
+        launches_a = dict(ops.launches)
+        digest_a = file_digest(tmp / "a" / "ckpt_4.pkl")
+        shutil.rmtree(tmp / "a")
+        ops.reset_launches()
+        b1 = train_launcher(cfg, steps=2, ckpt_dir=str(tmp / "b"), **kw)
+        gc.collect()                  # the run's models are gone
+        torch.cuda.empty_cache()
+        b2 = train_launcher(cfg, steps=2, resume=True,
+                            ckpt_dir=str(tmp / "b"), **kw)
+        launches_b = dict(ops.launches)
+        digest_b = file_digest(tmp / "b" / "ckpt_4.pkl")
+
+        fp_a = [s[1] for s in a["saves"]]
+        fp_b = [s[1] for s in b1["saves"] + b2["saves"]]
+        check(fp_a == fp_b, f"checkpoint digests: A {fp_a}, B {fp_b}")
+        check(digest_a == digest_b, "the step-4 checkpoint files differ")
+        final_a = a["records"][-1]["fps"]
+        final_b = b2["records"][-1]["fps"]
+        check(final_a == final_b and len(set(final_a.values())) == 1,
+              f"final fingerprints: A {final_a}, B {final_b}")
+        check(a["losses"] == b1["losses"] + b2["losses"],
+              f"losses: A {a['losses']}, B {b1['losses'] + b2['losses']}")
+        check(all(math.isfinite(x) for x in a["losses"]), f"{a['losses']}")
+        agreed_a = a["coordinator_checkpoints"]
+        agreed_b = b1["coordinator_checkpoints"] + b2["coordinator_checkpoints"]
+        check(agreed_a == agreed_b == [(2, fp_a[0]), (4, fp_a[1])],
+              f"agreed checkpoints: A {agreed_a}, B {agreed_b}")
+        attest = 2 * n_leaves * 3 * 4
+        want_a = attest + 2 * n_leaves                      # two saves
+        want_b = attest + 2 * n_leaves + 3 * n_leaves       # and 3 loads
+        for run, got, want in (("A", launches_a, want_a),
+                               ("B", launches_b, want_b)):
+            expect = {k: 0 for k in got}
+            expect["fingerprint"] = want
+            check(got == expect, f"xlstm run {run} launched {got}, expected "
+                                 f"{expect}")
+
+        # one byte flipped in the parameters' data (the first fifth of the
+        # file: 2 of the 10 bytes a parameter): the load must refuse it
+        pkl = tmp / "b" / "ckpt_4.pkl"
+        at = pkl.stat().st_size // 10
+        with open(pkl, "r+b") as f:
+            f.seek(at)
+            byte = f.read(1)
+            f.seek(at)
+            f.write(bytes([byte[0] ^ 0x01]))
+        try:
+            load_checkpoint(str(tmp / "b"), cfg, device="cuda")
+        except ValueError as e:
+            check("fingerprint" in str(e), f"corrupt load: {e}")
+        else:
+            raise RuntimeError("chip_smoke: a corrupted checkpoint loaded")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    saves = a["saves"] + b1["saves"] + b2["saves"]
+    for label, run in (("A", a), ("B", b1), ("B resumed", b2)):
+        print(f"    xlstm run {label}: losses "
+              + ", ".join(f"{x:.6f}" for x in run["losses"])
+              + "; saves " + ", ".join(
+                  f"step {st} {sec:.2f} s ({nb / sec / 1e9:.2f} GB/s)"
+                  for st, _, sec, nb in run["saves"])
+              + (("; loads " + ", ".join(f"{sec:.2f} s ({nb / sec / 1e9:.2f} "
+                                         f"GB/s)" for sec, nb in run["loads"]))
+                 if run["loads"] else "")
+              + f" [{card_line}]")
+    print(f"[9b] {cfg.name} {cfg.n_layers} of {full.n_layers} layers bf16, "
+          f"remat {cfg.remat} ({n_params / 1e9:.3f} B params, {n_leaves} "
+          f"leaves, {saves[0][3] / 1e9:.2f} GB a checkpoint), {XLSTM_BATCH} x "
+          f"{XLSTM_SEQ} tokens a step through launch.train: 4 steps == 2 + "
+          f"resume + 2 (checkpoint digests {[hex(x) for x in fp_a]}, files "
+          f"and final fingerprints identical, losses bit for bit), agreed "
+          f"cuts equal, a flipped byte refused; launches A {launches_a}, B "
+          f"{launches_b}; took {time.perf_counter() - t_b:.1f} s "
+          f"[{card_line}]")
+    return launches_a["fingerprint"] + launches_b["fingerprint"]
+
+
+def file_digest(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
 
 
 def main() -> int:
@@ -1015,6 +1236,7 @@ def main() -> int:
         for name, n in got.items():
             launches[name] += n
     launches["fingerprint"] += phase_train(card_line)
+    launches["fingerprint"] += phase_recurrent_train(card_line)
     check(all(n > 0 for n in launches.values()),
           f"a kernel was never launched on the main paths: {launches}")
     kernels = [dict({k: row[k] for k in ("name", "route", "source", "replaces")},

@@ -30,5 +30,5 @@ def smoke_config() -> ModelConfig:
         name="gemma3-1b-smoke", family="dense",
         n_layers=3, d_model=48, n_heads=2, n_kv_heads=1, head_dim=24,
         d_ff=96, vocab=256,
-        blocks=(((sL, sL, sG), 1),),
+        blocks=(((sL, sL, sG), 1),), remat="none",
     )

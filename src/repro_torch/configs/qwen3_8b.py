@@ -23,5 +23,5 @@ def smoke_config() -> ModelConfig:
         name="qwen3-8b-smoke", family="dense",
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
         d_ff=128, vocab=256, blocks=default_blocks(2),
-        qk_norm=True,
+        qk_norm=True, remat="none",
     )

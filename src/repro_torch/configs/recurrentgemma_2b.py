@@ -29,5 +29,5 @@ def smoke_config() -> ModelConfig:
         name="recurrentgemma-smoke", family="hybrid",
         n_layers=3, d_model=64, n_heads=2, n_kv_heads=1, head_dim=32,
         d_ff=96, vocab=256,
-        blocks=(((sR, sR, sA), 1),),
+        blocks=(((sR, sR, sA), 1),), remat="none",
     )

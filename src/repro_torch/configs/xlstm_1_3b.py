@@ -29,5 +29,5 @@ def smoke_config() -> ModelConfig:
         name="xlstm-smoke", family="ssm",
         n_layers=4, d_model=64, n_heads=2, n_kv_heads=2, head_dim=32,
         d_ff=0, vocab=256,
-        blocks=(((sM, sM, sM, sS), 1),),
+        blocks=(((sM, sM, sM, sS), 1),), remat="none",
     )

@@ -69,11 +69,14 @@ def layout() -> Tuple[int, int, int]:
 
 def rglru_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The kernel's plain PyTorch version, on any device: the sequential
-    recurrence in fp32, one step at a time."""
+    recurrence in fp32, one step at a time.  The inputs are unbound over
+    time once and the steps stacked, so that autograd differentiates it
+    with one gather and one stack, not with a zero-filled copy of a whole
+    input or output for every step."""
     a, x = a.float(), x.float()
-    y = torch.empty_like(a)
     carry = torch.zeros_like(a[:, 0])
-    for t in range(a.shape[1]):
-        carry = a[:, t] * carry + x[:, t]
-        y[:, t] = carry
-    return y
+    ys = []
+    for a_t, x_t in zip(a.unbind(1), x.unbind(1)):
+        carry = a_t * carry + x_t
+        ys.append(carry)
+    return torch.stack(ys, dim=1)

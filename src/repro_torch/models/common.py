@@ -46,6 +46,7 @@ class ModelConfig:
     qk_norm: bool = False
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    remat: str = "full"          # "none" | "dots" | "full" (training only)
     q_chunk: int = 512
     mlstm_chunk: int = 256
     attest: bool = True          # fingerprint grads/params each step (uBFT)

@@ -1,16 +1,23 @@
 """Recurrent blocks: xLSTM (mLSTM + sLSTM) and RG-LRU (RecurrentGemma),
 ported from ``repro.models.recurrent``.
 
-Prefill forms:
-* **mLSTM** — the chunkwise-parallel form; the chunk loop is the mLSTM
-  kernel (``ops.mlstm_chunkwise_state``), which also returns the state that
-  decode starts from.
+Prefill and training forms (one function each, so that the two cannot
+drift apart; ``train=True`` selects the training form):
+* **mLSTM** — the chunkwise-parallel form; in prefill the chunk loop is the
+  mLSTM kernel (``ops.mlstm_chunkwise_state``), which also returns the
+  state that decode starts from.
 * **sLSTM** — inherently sequential (recurrent gate connections): a Python
   loop over time with the input projections hoisted out of it.  It has no
   kernel.
-* **RG-LRU** — gated linear recurrence: the RG-LRU kernel
-  (``ops.rglru_scan``) in place of JAX's ``associative_scan``, after a short
-  causal conv1d.
+* **RG-LRU** — gated linear recurrence after a short causal conv1d: in
+  prefill the RG-LRU kernel (``ops.rglru_scan``) in place of JAX's
+  ``associative_scan``.
+
+The mLSTM and RG-LRU kernels are forward only, so the training forms call
+their plain versions by name (``mlstm_plain``, ``rglru_plain``), which
+autograd differentiates.  They do not leave the choice to the wrappers'
+autograd guard: under activation checkpointing the guard could pass in
+one forward and refuse in the recompute.
 
 Decode forms: single-step state updates that return new state tensors; the
 state replaces the KV cache.
@@ -24,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.mlstm import mlstm_plain
+from repro_torch.kernels.rglru import rglru_plain
 from repro_torch.models.common import ModelConfig, rms_norm, weak_scalar
 
 State = Dict[str, torch.Tensor]
@@ -53,13 +62,15 @@ def _mlstm_gates(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
 
 
 def mlstm_train(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                chunk: int = 256) -> Tuple[torch.Tensor, State]:
-    """Chunkwise-parallel mLSTM. x: (B, S, D) -> ((B, S, H·dh), state).
+                chunk: int = 256, train: bool = False
+                ) -> Tuple[torch.Tensor, State]:
+    """Chunkwise-parallel mLSTM. x: (B, S, D) -> ((B, S, H·dh), state);
+    through the kernel, or with ``train`` through its plain version.
 
     As in the JAX package, the *input* is zero-padded to a multiple of
     min(chunk, S) before the gate projections, so a padded step has
     q = k = v = 0, input gate 0 and forget gate ``bf``; the final state
-    includes those steps."""
+    includes those steps (training reads only ``h[:, :S]``)."""
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.dh
     c = min(chunk, S)
@@ -67,17 +78,18 @@ def mlstm_train(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
     q, k, v, it, ft = _mlstm_gates(cfg, p, x)
-    h, (C, n, m) = ops.mlstm_chunkwise_state(q, k, v, it, ft, c)
+    chunkwise = mlstm_plain if train else ops.mlstm_chunkwise_state
+    h, (C, n, m) = chunkwise(q, k, v, it, ft, c)
     h = h.reshape(B, S + pad, H * dh)[:, :S]
     return h, {"C": C, "n": n, "m": m}
 
 
-def mlstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
-                ) -> Tuple[torch.Tensor, State]:
+def mlstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                train: bool = False) -> Tuple[torch.Tensor, State]:
     """Full mLSTM residual block: norm → mLSTM → out-proj → gated MLP.
     Returns (output, state)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    inner, state = mlstm_train(cfg, p, h, chunk=cfg.mlstm_chunk)
+    inner, state = mlstm_train(cfg, p, h, chunk=cfg.mlstm_chunk, train=train)
     y = inner @ p["wo"] + _gated_mlp(p, h)
     return x + y, state
 
@@ -143,16 +155,17 @@ def _slstm_inputs(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 def slstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
                 ) -> Tuple[torch.Tensor, State]:
     """sLSTM residual block, a loop over time (sequential recurrence).
-    Returns (output, state)."""
+    Returns (output, state).  The inputs are unbound over time once, so
+    that autograd assembles their gradients with one stack each, not with
+    a zero-filled copy of the whole input for every step."""
     B, S, D = x.shape
     hin = rms_norm(x, p["ln1"], cfg.norm_eps)
-    zx, ix, fx, ox = _slstm_inputs(cfg, p, hin)
+    inputs = [t.unbind(1) for t in _slstm_inputs(cfg, p, hin)]
     st = slstm_init_state(cfg, B, device=x.device)
     c, h, m = st["c"], st["h"], st["m"]
     hs = []
-    for t in range(S):
-        c, h, m = _slstm_cell(p, zx[:, t], ix[:, t], fx[:, t], ox[:, t],
-                              c, h, m)
+    for zt, it, ft, ot in zip(*inputs):
+        c, h, m = _slstm_cell(p, zt, it, ft, ot, c, h, m)
         hs.append(h)
     y = torch.stack(hs, dim=1).reshape(B, S, D) @ p["wo"]
     y = y + _gated_mlp(p, hin)
@@ -196,16 +209,17 @@ def _rglru_gates(p: Dict[str, torch.Tensor], uc: torch.Tensor):
     return a, uc.float() * i * beta
 
 
-def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
-                ) -> Tuple[torch.Tensor, State]:
+def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                train: bool = False) -> Tuple[torch.Tensor, State]:
     """RG-LRU residual block: in-proj → conv1d(4) → gated linear recurrence
-    (the RG-LRU kernel) → out-proj.  Returns (output, state)."""
+    (the RG-LRU kernel, or with ``train`` its plain version) → out-proj.
+    Returns (output, state)."""
     S = x.shape[1]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     u, gate = torch.chunk(h @ p["w_in"], 2, dim=-1)          # (B, S, F) ×2
     uc = _causal_conv4(u, p["conv"])
     a, xin = _rglru_gates(p, uc)
-    y = ops.rglru_scan(a, xin)
+    y = rglru_plain(a, xin) if train else ops.rglru_scan(a, xin)
     out_gated = (y * F.gelu(gate.float(), approximate="tanh")).to(x.dtype)
     out = x + out_gated @ p["w_out"]
     # decode state: last recurrence value + last 3 raw conv inputs

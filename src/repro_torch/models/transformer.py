@@ -2,7 +2,8 @@
 ``repro.models.transformer``: embedding, logits, caches, prefill and greedy
 decode steps, with the per-kind dispatch of ``apply_layer_prefill``,
 ``apply_layer_decode`` and ``init_layer_state``; and the training forward
-and loss (``forward_train``, ``lm_loss``) for dense attention stacks.
+and loss (``forward_train``, ``lm_loss``) through every kind, with the
+config's activation checkpointing (``remat``).
 JAX's ``lax.scan`` over a group's ``reps`` becomes a Python loop; the
 caches keep JAX's nesting (per group, per pattern position, a dict of
 tensors stacked over ``reps``): attention KV caches, or the state of a
@@ -11,9 +12,12 @@ recurrent layer.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import recurrent as rec
 from repro_torch.models.attention import (attention_train, decode_attention,
@@ -169,33 +173,80 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
 def apply_layer_train(cfg: ModelConfig, spec: LayerSpec,
                       p: Dict[str, torch.Tensor], x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
-    """One layer of the training forward.  Only attention layers train so
-    far: the recurrent kinds' prefill goes through forward-only kernels."""
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"training through {spec.kind} layers is not ported yet")
-    B, S = x.shape[:2]
-    q, k, v = qkv_project(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps),
-                          positions)
-    out = attention_train(cfg, q, k, v, spec.window)
-    x = x + out.reshape(B, S, cfg.n_heads * cfg.dh) @ p["wo"]
-    return _ffn_part(cfg, p, x)
+    """One layer of the training forward.  Attention takes the plain banded
+    or chunked path, as JAX's does; the recurrent kinds take their training
+    forms, which call no forward-only kernel."""
+    if spec.kind == "attn":
+        B, S = x.shape[:2]
+        q, k, v = qkv_project(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps),
+                              positions)
+        out = attention_train(cfg, q, k, v, spec.window)
+        x = x + out.reshape(B, S, cfg.n_heads * cfg.dh) @ p["wo"]
+        return _ffn_part(cfg, p, x)
+    if spec.kind == "mlstm":
+        return rec.mlstm_block(cfg, p, x, train=True)[0]
+    if spec.kind == "slstm":
+        return rec.slstm_block(cfg, p, x)[0]
+    if spec.kind == "rglru":
+        x = rec.rglru_block(cfg, p, x, train=True)[0]
+        return _ffn_part(cfg, p, x) if spec.has_ffn else x
+    raise ValueError(spec.kind)
+
+
+#: the products whose outputs ``remat="dots"`` keeps: those without batch
+#: dimensions (``x @ W`` reaches these), as JAX's
+#: ``checkpoint_dots_with_no_batch_dims``; batched products (attention's
+#: ``bmm``) and everything else are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the config's activation checkpointing, as JAX's
+    ``_remat``: "none" keeps every activation, "full" keeps only ``fn``'s
+    inputs and recomputes the rest in the backward, "dots" also keeps the
+    outputs of ``_DOTS``.  Non-reentrant checkpointing runs the first
+    forward with autograd on, so the forward and the recompute take the
+    same path and give the same bits."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, not "
+                         f"{cfg.remat!r}")
+    policy = {}
+    if cfg.remat == "dots":
+        policy["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    # the model draws no random numbers: no RNG state to carry
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **policy)
 
 
 def apply_groups_train(model: Transformer, x: torch.Tensor,
                        positions: torch.Tensor) -> torch.Tensor:
-    """Every layer in order.  Each stacked leaf is unbound once, so that its
-    gradient is assembled by one stack and not by a zero-filled copy of the
-    whole stack for every layer, as indexing it per layer would give."""
+    """Every layer in order, one repetition of a group's pattern at a time
+    under ``_remat`` (JAX's granularity).  Each stacked leaf is unbound
+    once, so that its gradient is assembled by one stack and not by a
+    zero-filled copy of the whole stack for every layer, as indexing it per
+    layer would give."""
     cfg = model.cfg
     for (pattern, reps), stacked_g in zip(cfg.blocks, model.groups):
         per_pos = [{k: t.unbind(0) for k, t in stacked.items()}
                    for stacked in stacked_g]
+
+        def body(xc, layer_params, pattern=pattern):
+            for spec, p in zip(pattern, layer_params):
+                xc = apply_layer_train(cfg, spec, p, xc, positions)
+            return xc
+
+        body = _remat(cfg, body)
         for r in range(reps):
-            for spec, layers in zip(pattern, per_pos):
-                x = apply_layer_train(cfg, spec,
-                                      {k: t[r] for k, t in layers.items()},
-                                      x, positions)
+            x = body(x, [{k: t[r] for k, t in layers.items()}
+                         for layers in per_pos])
     return x
 
 

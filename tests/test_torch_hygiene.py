@@ -1,6 +1,6 @@
-"""Rules of the PyTorch port: it imports neither JAX nor the ``repro``
-package, and its copy of the uBFT protocol stays the same code as the
-original."""
+"""Rules of the PyTorch port: it imports neither JAX, nor ``ml_dtypes``
+(which ships with JAX), nor the ``repro`` package, and its copy of the
+uBFT protocol stays the same code as the original."""
 
 import os
 import re
@@ -27,7 +27,8 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.startswith("jax") or name == "repro" or name.startswith("repro."):
+        if (name.startswith(("jax", "ml_dtypes")) or name == "repro"
+                or name.startswith("repro.")):
             raise ModuleNotFoundError(f"the port may not import {name}")
         return None
 
@@ -39,7 +40,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.startswith("jax") or m == "repro" or m.startswith("repro."))
+             if m.startswith(("jax", "ml_dtypes")) or m == "repro"
+             or m.startswith("repro."))
 assert not bad, bad
 print(len(names))
 """
