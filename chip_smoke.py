@@ -31,8 +31,9 @@
    seed 0) through the 3-replica uBFT token server: gemma3-1b,
    recurrentgemma-2b and xlstm-1.3b.  Each path's launch counts are reset
    just before it and read just after; the script checks that the path
-   launched each of its kernels, that the replicas agree, and that a decode
-   outside the server gives the same tokens;
+   launched each of its kernels and no other (the fingerprint once per
+   leaf, at set-up), that the replicas agree, and that a decode outside
+   the server gives the same tokens;
 8. trains qwen3-8b at full width, 4 of its 36 layers (bf16, random weights
    from seed 0, AdamW with bf16 moments and an fp32 master, the config's
    remat "full"), through the port's uBFT-replicated trainer: three
@@ -59,7 +60,16 @@
    exactly twice per leaf per replica per step, once per leaf per save and
    once per leaf per load, and no other kernel; save and load GB/s are
    printed; (c) one full-width group of each recurrent arch in fp32: the
-   loss and every gradient on the card against the CPU.
+   loss and every gradient on the card against the CPU;
+10. serves the routed-MoE archs at full width, depth cut to 8 layers
+   (bf16, random weights from seed 0), through the same 3-replica token
+   server and checks as phase 7: qwen3-moe-235b-a22b (128 experts, top-8)
+   and llama4-scout-17b-a16e (16 experts, top-1); the peak memory after
+   set-up and while serving, below 80 GB; the fingerprint kernel bit for
+   bit against its plain version on qwen3-moe's largest stacked expert
+   leaf (more than 2^32 words), and timed there; llama4-scout's prefill
+   from (1, 384, D) embeddings equal to ``embed(tokens)`` against the
+   prefill from those tokens, logits and caches bit for bit.
 
 Any failure raises.  The line before the last is a JSON object of
 per-kernel numbers (a kernel timed at several shapes lists them under
@@ -115,7 +125,8 @@ try:
     from repro_torch.launch.train import train as train_launcher  # noqa: E402
     from repro_torch.models.common import (Transformer,  # noqa: E402
                                            default_blocks, init_params)
-    from repro_torch.models.transformer import lm_loss, prefill  # noqa: E402
+    from repro_torch.models.transformer import (embed, lm_loss,  # noqa: E402
+                                                prefill)
     from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
                                    adamw_update)
     from repro_torch.runtime.attest import fingerprint_tree  # noqa: E402
@@ -149,6 +160,11 @@ TRAIN_LR = 1e-3
 RG_BATCH, RG_SEQ = 2, 1024
 XLSTM_GROUPS = 2
 XLSTM_BATCH, XLSTM_SEQ = 2, 512
+# phase 10: the MoE archs' depth cut so that one model's bf16 weights and
+# its init's fp32 draw of one stacked expert leaf fit the card
+MOE_LAYERS = 8
+# the card's memory: a path's peak allocation must stay below it
+CARD_BYTES = 80e9
 
 
 #: the per-shape numbers of a kernel's JSON entry
@@ -289,11 +305,14 @@ def phase_fingerprint(full_model: Transformer) -> dict:
           f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.3f} ms, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms "
           f"({n_bytes / t['device_ms'] / 1e6:.0f} GB/s)")
+    shape = dict(shape=f"gemma3-1b embed {tuple(emb.shape)} bf16", **t,
+                 bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     return {"name": "fingerprint", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fingerprint.cu",
             "replaces": "src/repro/kernels/fingerprint.py:25",
-            "max_abs_err": 0, **t, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "max_abs_err": 0, **{k: shape[k] for k in TIMES},
+            "shapes": [shape]}
 
 
 def swa_bound_ms(S: int, H: int, KV: int, dh: int, w: int, elem: int,
@@ -668,22 +687,37 @@ def phase_layers() -> None:
 
 
 def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
-                prompt_len: int, gen_len: int, kernels, profile_turn: int
-                ) -> dict:
-    """Serves ``arch`` at full width and depth through 3 replicas; returns
-    the kernel launch counts of this path."""
-    cfg = get_config(arch)
+                prompt_len: int, gen_len: int, kernels, profile_turn: int,
+                layers: int = 0, check_model=None, tag: str = "[7]") -> dict:
+    """Serves ``arch`` at full width through 3 replicas, at full depth or
+    cut to ``layers`` (a uniform stack); returns the kernel launch counts
+    of this path, which must be the ``kernels`` named and the fingerprint
+    once per leaf (the weights' attestation at set-up).  ``check_model(
+    model, max_seq)`` runs after the path's checks, its launches
+    uncounted."""
+    full = get_config(arch)
+    cfg = full if not layers else dataclasses.replace(
+        full, n_layers=layers, blocks=default_blocks(layers))
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers" if layers
+             else f"{cfg.n_layers} layers (full depth)")
     max_seq = turns * (prompt_len + gen_len) + 8
     serve.set_deterministic()
     rng = np.random.default_rng(0)
     prompts = [[rng.integers(0, cfg.vocab, size=prompt_len).tolist()
                 for _ in range(sessions)] for _ in range(turns)]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
     server, decoder, digest = serve.build_server(cfg, torch.device("cuda"),
                                                  max_seq)
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     clients = [server.cluster.new_client() for _ in range(sessions)]
     reqs = []
     for t in range(turns):
@@ -699,10 +733,19 @@ def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
                          "smr_latency_us": lat, "wall_ms": wall * 1e3})
     launches = dict(ops.launches)
     torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
     calls = list(decoder.timings)
 
     check(all(launches[k] > 0 for k in kernels),
           f"{arch}: the main path skipped a kernel: {launches}")
+    n_leaves = len(list(decoder.model.param_leaves()))
+    check(launches["fingerprint"] == n_leaves
+          and all(n == 0 for k, n in launches.items() if k not in kernels),
+          f"{arch}: launches {launches}, expected {kernels} and the "
+          f"fingerprint {n_leaves} times")
+    check(setup_peak < CARD_BYTES and serve_peak < CARD_BYTES,
+          f"{arch}: peak {setup_peak / 1e9:.2f} GB at set-up, "
+          f"{serve_peak / 1e9:.2f} GB serving")
     snaps = [r.app.snapshot() for r in server.cluster.replicas]
     check(snaps[0] == snaps[1] == snaps[2], f"{arch}: replica snapshots differ")
     hist = dict(snaps[0])
@@ -711,6 +754,8 @@ def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
     # the same greedy decode outside the replicas gives the same tokens
     check(decoder("s0", prompts[0][0], gen_len) == reqs[0]["tokens"],
           f"{arch}: decode outside the server disagrees with the replicas")
+    if check_model is not None:
+        check_model(decoder.model, max_seq)
 
     n_prof = profile_turn * (prompt_len + gen_len) + prompt_len
     prof_hist = list(hist["s0"])[:n_prof]
@@ -733,13 +778,23 @@ def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
               f"{gen_len} tokens) under torch.profiler: {busy['kernels']} "
               f"kernels, device busy {busy['device_ms']:.1f} of "
               f"{busy['wall_ms']:.1f} ms wall "
-              f"({100 * busy['busy_share']:.1f}%) [{card_line}]")
+              f"({100 * busy['busy_share']:.1f}%); the most device time by "
+              f"operator: "
+              + "; ".join(f"{op} x {n}: {ms:.1f} ms"
+                          for op, n, ms in busy["top"])
+              + f" [{card_line}]")
     else:
         print(f"    {arch} device busy share not measured: {busy}")
-    print(f"[7] {arch} {cfg.n_layers} layers bf16 served by 3 replicas: "
-          f"{len(reqs)} requests, replicas identical, weights {digest:#010x}, "
-          f"launches {launches}, set-up {setup_s:.1f} s")
+    n_params = sum(p.numel() for p in decoder.model.param_leaves())
+    print(f"    {arch} peak allocated: {setup_peak / 1e9:.2f} GB at set-up "
+          f"({held / 1e9:.2f} GB held after it), {serve_peak / 1e9:.2f} GB "
+          f"while serving [{card_line}]")
+    print(f"{tag} {arch} {depth} bf16 ({n_params / 1e9:.3f} B params, "
+          f"{n_leaves} leaves) served by 3 replicas: {len(reqs)} requests, "
+          f"replicas identical, weights {digest:#010x}, launches {launches}, "
+          f"set-up {setup_s:.1f} s")
     del server, decoder
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -1195,6 +1250,80 @@ def train_resumed(card_line: str) -> int:
     return launches_a["fingerprint"] + launches_b["fingerprint"]
 
 
+def check_large_leaf(card_line: str, fp_row: dict):
+    """``check_model`` of qwen3-moe's path: the fingerprint kernel on the
+    largest stacked expert leaf (more than 2^32 words, above any count a
+    32-bit index holds) against its plain version, bit for bit, and timed
+    there; the timing joins the kernel's ``shapes``."""
+    def check_fn(model: Transformer, max_seq: int) -> None:
+        leaf = max(model.param_leaves(), key=lambda p: p.numel())
+        n = leaf.numel()
+        check(n > 2 ** 32, f"largest leaf has only {n} words")
+        got, want = ops.fingerprint(leaf), fingerprint_plain(leaf)
+        check(got == want, f"fingerprint of {n} words: {got} != {want}")
+        t = timed(lambda: fingerprint_cuda(leaf),
+                  lambda: fingerprint_plain(leaf), None, iters=10,
+                  plain_iters=1)
+        n_bytes = n * leaf.element_size() + 4
+        bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+        ops_ms = 4 * n / CORE_OPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"    fingerprint of qwen3-moe's stacked leaf "
+              f"{tuple(leaf.shape)} bf16 ({n / 2 ** 32:.2f} x 2^32 words): "
+              f"kernel == plain ({got:#010x}); kernel {t['ms']:.3f} ms "
+              f"(device {t['device_ms']:.3f}), plain {t['plain_ms']:.1f} ms, "
+              f"bound {bound_ms:.3f} ms ({n_bytes / t['device_ms'] / 1e6:.0f} "
+              f"GB/s; {bound_ms / t['device_ms']:.0%} of the bound) "
+              f"[{card_line}]")
+        fp_row["shapes"].append(dict(
+            shape=f"qwen3-moe stacked experts {tuple(leaf.shape)} bf16",
+            **t, bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+    return check_fn
+
+
+def check_frontend(card_line: str):
+    """``check_model`` of llama4-scout's path: a prefill from (1, 384, D)
+    embeddings equal to ``embed(tokens)`` gives the logits and caches of
+    the prefill from those tokens, bit for bit."""
+    def check_fn(model: Transformer, max_seq: int) -> None:
+        toks = torch.randint(0, model.cfg.vocab, (1, 384),
+                             generator=torch.Generator().manual_seed(4))
+        toks = toks.cuda()
+        by_tok, caches_tok = prefill(model, toks, max_seq=max_seq)
+        emb = embed(model, toks)
+        by_emb, caches_emb = prefill(model, emb, max_seq=max_seq)
+        same = torch.equal(by_tok, by_emb) and all(
+            torch.equal(a[k], b[k])
+            for ga, gb in zip(caches_tok, caches_emb)
+            for a, b in zip(ga, gb) for k in a)
+        check(same, "llama4-scout: the prefill from embeddings differs from "
+                    "the prefill from tokens")
+        print(f"    {model.cfg.name}: prefill from {tuple(emb.shape)} "
+              f"{str(emb.dtype)[6:]} embeddings == prefill from the tokens "
+              f"(logits and caches bit for bit) [{card_line}]")
+    return check_fn
+
+
+def phase_moe(card_line: str, fp_row: dict) -> dict:
+    """Phase 10: qwen3-moe-235b-a22b and llama4-scout-17b-a16e at full
+    width, ``MOE_LAYERS`` layers, served as phase 7's paths; returns the
+    launch counts of both paths."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for arch, check_fn in (("qwen3-moe-235b-a22b",
+                            check_large_leaf(card_line, fp_row)),
+                           ("llama4-scout-17b-a16e",
+                            check_frontend(card_line))):
+        got = phase_serve(card_line, arch, 2, 3, 384, 8, ("fingerprint",), 2,
+                          layers=MOE_LAYERS, check_model=check_fn, tag="[10]")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card_line}]")
+    return launches
+
+
 def file_digest(path: Path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -1237,6 +1366,8 @@ def main() -> int:
             launches[name] += n
     launches["fingerprint"] += phase_train(card_line)
     launches["fingerprint"] += phase_recurrent_train(card_line)
+    for name, n in phase_moe(card_line, fp).items():
+        launches[name] += n
     check(all(n > 0 for n in launches.values()),
           f"a kernel was never launched on the main paths: {launches}")
     kernels = [dict({k: row[k] for k in ("name", "route", "source", "replaces")},

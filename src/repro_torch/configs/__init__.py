@@ -1,4 +1,6 @@
-from repro_torch.configs.registry import (ARCHS, get_config,
-                                          get_smoke_config, list_archs)
+from repro_torch.configs.registry import (ARCHS, LONG_CONTEXT_OK,
+                                          get_config, get_smoke_config,
+                                          list_archs)
 
-__all__ = ["ARCHS", "get_config", "get_smoke_config", "list_archs"]
+__all__ = ["ARCHS", "LONG_CONTEXT_OK", "get_config",
+           "get_smoke_config", "list_archs"]

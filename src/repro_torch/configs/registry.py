@@ -1,5 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution for the archs the port
-supports."""
+"""Architecture registry: ``--arch <id>`` resolution, the same ten archs
+as ``repro.configs.registry``."""
 
 from __future__ import annotations
 
@@ -9,11 +9,20 @@ from typing import Dict, List
 from repro_torch.models.common import ModelConfig
 
 ARCHS: Dict[str, str] = {
-    "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
-    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
+
+#: archs with a sub-quadratic (or state-based) path for long_500k decode
+LONG_CONTEXT_OK = {"gemma3-4b", "gemma3-1b", "xlstm-1.3b", "recurrentgemma-2b"}
 
 
 def list_archs() -> List[str]:

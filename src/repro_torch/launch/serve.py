@@ -1,8 +1,11 @@
 """Serving launcher: a uBFT-replicated token server on the port's model.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --arch gemma3-1b|recurrentgemma-2b|xlstm-1.3b \\
+      --arch gemma3-1b|qwen3-moe-235b-a22b|... \\
       [--smoke] [--device cpu] [--requests 10] [--batch 4]
+
+``--arch`` takes any of the ten archs of ``repro_torch.configs``; a
+frontend arch is served from token ids, as its decode is.
 
 Three replicas hold the same model (one weight copy, attested by its
 fingerprint); client requests are ordered through uBFT consensus; the

@@ -30,6 +30,15 @@ class LayerSpec:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -41,11 +50,15 @@ class ModelConfig:
     vocab: int
     head_dim: Optional[int] = None
     blocks: Tuple[Tuple[Tuple[LayerSpec, ...], int], ...] = ()
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 10_000.0
     rope_fraction: float = 1.0
     qk_norm: bool = False
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    # modality frontend stub: prefill and training take (B, S, D)
+    # precomputed embeddings in place of token ids
+    frontend: Optional[str] = None   # None | "audio" | "vlm"
     remat: str = "full"          # "none" | "dots" | "full" (training only)
     q_chunk: int = 512
     mlstm_chunk: int = 256
@@ -132,7 +145,9 @@ class Leaf:
 
 def layer_leaves(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Leaf]:
     """The parameters of one layer of ``spec``'s kind, as
-    ``repro.models.common.init_layer_params`` makes them (dense FFN only)."""
+    ``repro.models.common.init_layer_params`` makes them: a dense FFN, or
+    with ``cfg.moe`` an fp32 router and the experts stacked on a leading
+    axis."""
     D, dh, H, KV, F = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     s_in = D ** -0.5
     leaves = {"ln1": Leaf((D,))}
@@ -168,8 +183,16 @@ def layer_leaves(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Leaf]:
     else:
         raise ValueError(spec.kind)
     if spec.has_ffn and spec.kind in ("attn", "rglru"):
-        leaves.update(ln2=Leaf((D,)), w_gate=Leaf((D, F), s_in),
-                      w_up=Leaf((D, F), s_in), w_down=Leaf((F, D), F ** -0.5))
+        leaves["ln2"] = Leaf((D,))
+        if cfg.moe is not None:
+            E, Fe = cfg.moe.n_experts, cfg.moe.d_expert
+            leaves.update(
+                router=Leaf((D, E), s_in, dtype=torch.float32),
+                w_gate=Leaf((E, D, Fe), s_in), w_up=Leaf((E, D, Fe), s_in),
+                w_down=Leaf((E, Fe, D), Fe ** -0.5))
+        else:
+            leaves.update(w_gate=Leaf((D, F), s_in), w_up=Leaf((D, F), s_in),
+                          w_down=Leaf((F, D), F ** -0.5))
     return leaves
 
 
@@ -226,7 +249,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def draw(p: torch.Tensor, scale: float) -> None:
         noise = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                             device=p.device)
-        p.copy_(noise * scale)
+        # scaled in place: one fp32 temporary the size of the leaf, not two
+        # (a full-width stack of experts is tens of GB in fp32)
+        p.copy_(noise.mul_(scale))
 
     draw(model.embed, cfg.d_model ** -0.5)
     for (pattern, _), group in zip(cfg.blocks, model.groups):

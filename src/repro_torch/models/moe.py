@@ -1,14 +1,109 @@
-"""Feed-forward layers, ported from ``repro.models.moe`` (dense SwiGLU only;
-the routed MoE is not ported yet)."""
+"""Feed-forward layers, ported from ``repro.models.moe``: the dense SwiGLU
+FFN and the routed Mixture-of-Experts FFN on one device.
+
+The routed FFN keeps the reference's semantics to the bit where the
+arithmetic allows: top-k routing on fp32 logits with ties broken toward the
+lower expert index, as ``jax.lax.top_k`` breaks them; a fixed capacity of
+C = max(min(T, 32), ceil(T·k/E · capacity_factor)) tokens an expert, filled
+in sorted (expert, token) order, the rest dropped; the expert products over
+the (E, C, D) buffer; each token's k weighted contributions added one at a
+time in the order the reference's sorted scatter-add meets them, ascending
+expert index, in the activation dtype.  Every step is a gather, a sort or
+a scatter with unique targets, so the result has the same bits on every
+run on the card under ``torch.use_deterministic_algorithms(True)``, and no
+step has a shape that depends on the data.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig
+
+
+def _capacity(T: int, k: int, E: int, cf: float) -> int:
+    return max(min(T, 32), int(math.ceil(T * k / E * cf)))
+
+
+def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (T, D) -> (weights (T, k) fp32, experts (T, k) int64).
+
+    The logits are an fp32 product (TF32 would move near-ties; PyTorch's
+    default fp32 matmul precision, "highest", keeps it off).  A stable
+    descending sort puts the lower index first on equal logits, as
+    ``jax.lax.top_k`` does (``torch.topk`` does not)."""
+    logits = x.float() @ router_w                      # (T, E)
+    top_w, top_e = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    return torch.softmax(top_w[:, :k], dim=-1), top_e[:, :k]
+
+
+def moe_ffn_local(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                  x: torch.Tensor, e0: int, e_local: int) -> torch.Tensor:
+    """MoE FFN over the expert slice [e0, e0 + e_local).
+
+    x: (T, D); the expert weights in ``p`` are that slice's,
+    (e_local, D, F) and (e_local, F, D).  Returns the slice's contribution
+    (T, D); with experts spread over devices the caller sums the slices."""
+    m = cfg.moe
+    T, D = x.shape
+    k = m.top_k
+    C = _capacity(T, k, m.n_experts, m.capacity_factor)
+
+    top_w, top_e = route(cfg, p["router"], x)
+    flat_e = top_e.reshape(-1)                          # (T·k,)
+    flat_w = top_w.reshape(-1).to(x.dtype)
+    flat_tok = torch.arange(T, device=x.device).repeat_interleave(k)
+
+    le = flat_e - e0
+    mine = (le >= 0) & (le < e_local)
+    key = torch.where(mine, le, e_local)                # sentinel: not mine
+    order = torch.argsort(key, stable=True)
+    key_s = key[order]
+    tok_s = flat_tok[order]
+    # position within each expert's segment (sorted: first-occurrence math)
+    first = torch.searchsorted(key_s, key_s, side="left")
+    seg_pos = torch.arange(T * k, device=x.device) - first
+    keep = (key_s < e_local) & (seg_pos < C)
+    overflow = e_local * C
+    dest = torch.where(keep, key_s * C + seg_pos, overflow)
+
+    # scatter with mode="drop": every dropped row lands on one extra row,
+    # sliced off; kept rows have unique targets
+    buf = x.new_zeros(overflow + 1, D).index_put((dest,), x[tok_s])
+    buf = buf[:overflow].reshape(e_local, C, D)
+    h = torch.bmm(buf, p["w_gate"])
+    u = torch.bmm(buf, p["w_up"])
+    y = torch.bmm(F.silu(h) * u, p["w_down"]).reshape(overflow, D)
+
+    # gather with mode="fill": the overflow row reads zeros
+    rows = torch.cat([y, y.new_zeros(1, D)])[dest]      # (T·k, D), sorted
+    contrib = rows * (flat_w[order] * keep.to(x.dtype))[:, None]
+    # back to token-major order, each token's k rows by ascending expert:
+    # the order in which the reference's sorted scatter-add meets them
+    by_expert = torch.argsort(top_e, dim=-1)            # experts distinct
+    flat_pos = (torch.arange(T, device=x.device)[:, None] * k
+                + by_expert).reshape(-1)
+    contrib = contrib[torch.argsort(order)[flat_pos]].reshape(T, k, D)
+    out = x.new_zeros(T, D)
+    for j in range(k):
+        out = out + contrib[:, j]
+    return out
 
 
 def dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """SwiGLU FFN. x: (..., D)."""
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+            x: torch.Tensor) -> torch.Tensor:
+    """MoE FFN over (B, S, D) activations, every expert on this device."""
+    B, S, D = x.shape
+    out = moe_ffn_local(cfg, p, x.reshape(B * S, D), 0, cfg.moe.n_experts)
+    return out.reshape(B, S, D)

@@ -3,7 +3,9 @@
 decode steps, with the per-kind dispatch of ``apply_layer_prefill``,
 ``apply_layer_decode`` and ``init_layer_state``; and the training forward
 and loss (``forward_train``, ``lm_loss``) through every kind, with the
-config's activation checkpointing (``remat``).
+config's activation checkpointing (``remat``).  A layer's FFN is dense or,
+with ``cfg.moe``, routed (``models.moe.moe_ffn``).  Prefill and training
+take (B, S) token ids or, for a modality frontend, (B, S, D) embeddings.
 JAX's ``lax.scan`` over a group's ``reps`` becomes a Python loop; the
 caches keep JAX's nesting (per group, per pattern position, a dict of
 tensors stacked over ``reps``): attention KV caches, or the state of a
@@ -25,7 +27,7 @@ from repro_torch.models.attention import (attention_train, decode_attention,
                                           qkv_project)
 from repro_torch.models.common import (LayerSpec, ModelConfig, Transformer,
                                        rms_norm, weak_scalar)
-from repro_torch.models.moe import dense_ffn
+from repro_torch.models.moe import dense_ffn, moe_ffn
 
 Caches = Tuple[Tuple[Dict[str, torch.Tensor], ...], ...]
 
@@ -36,14 +38,20 @@ def _layer(stacked, r: int) -> Dict[str, torch.Tensor]:
 
 def _ffn_part(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
-    return x + dense_ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps))
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + (moe_ffn(cfg, p, h) if cfg.moe is not None
+                else dense_ffn(p, h))
 
 
-def embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) integer -> (B, S, D) scaled by sqrt(d_model)."""
+def embed(model: Transformer, inputs: torch.Tensor) -> torch.Tensor:
+    """inputs: (B, S) integer tokens -> (B, S, D) rows of the table scaled
+    by sqrt(d_model); or (B, S, D) frontend embeddings, cast to the model's
+    dtype and not scaled."""
     cfg = model.cfg
+    if inputs.is_floating_point():
+        return inputs.to(cfg.tdtype())
     table = model.embed
-    return (table[tokens] * weak_scalar(cfg.d_model ** 0.5, table)
+    return (table[inputs] * weak_scalar(cfg.d_model ** 0.5, table)
             ).to(cfg.tdtype())
 
 
@@ -123,15 +131,15 @@ def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor,
+def prefill(model: Transformer, inputs: torch.Tensor,
             max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Caches]:
-    """Run the whole prompt, building caches.  tokens: (B, S).
-    Returns (last position's logits (B, V), caches)."""
+    """Run the whole prompt, building caches.  inputs: (B, S) tokens or
+    (B, S, D) embeddings.  Returns (last position's logits (B, V), caches)."""
     cfg = model.cfg
-    B, S = tokens.shape
+    B, S = inputs.shape[:2]
     max_seq = max_seq or S
-    x = embed(model, tokens)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = embed(model, inputs)
+    positions = torch.arange(S, device=inputs.device).expand(B, S)
     new_groups = []
     for (pattern, reps), stacked_g in zip(cfg.blocks, model.groups):
         per_rep = []
@@ -251,8 +259,9 @@ def apply_groups_train(model: Transformer, x: torch.Tensor,
 
 
 def forward_train(model: Transformer, inputs: torch.Tensor) -> torch.Tensor:
-    """inputs: (B, S) integer tokens -> (B, S, V) logits."""
-    B, S = inputs.shape
+    """inputs: (B, S) integer tokens or (B, S, D) frontend embeddings ->
+    (B, S, V) logits."""
+    B, S = inputs.shape[:2]
     x = embed(model, inputs)
     positions = torch.arange(S, device=inputs.device).expand(B, S)
     return logits_fn(model, apply_groups_train(model, x, positions))

@@ -22,8 +22,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
     loss and its gradients (left in each parameter's ``.grad``), one AdamW
     step written into the model and the state, and with ``cfg.attest`` the
     digests ``grad_fp`` of the gradients and ``param_fp`` of the new
-    parameters, both in ``param_leaves()`` order.  ``batch`` holds integer
-    ``inputs`` and ``targets`` of shape (B, S) on the model's device."""
+    parameters, both in ``param_leaves()`` order.  ``batch`` holds
+    ``inputs``, (B, S) integer tokens or, for a frontend arch, (B, S, D)
+    float embeddings, and integer ``targets`` (B, S), on the model's
+    device."""
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(model: Transformer, opt_state: State,
@@ -51,6 +53,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
 
 
 def make_prefill(cfg: ModelConfig, max_seq: Optional[int] = None):
+    """``prefill_step(model, inputs)``: inputs are (B, S) tokens or (B, S,
+    D) frontend embeddings."""
+
     def prefill_step(model: Transformer, inputs: torch.Tensor):
         return prefill(model, inputs, max_seq=max_seq)
 
