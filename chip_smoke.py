@@ -69,7 +69,31 @@
    bit against its plain version on qwen3-moe's largest stacked expert
    leaf (more than 2^32 words), and timed there; llama4-scout's prefill
    from (1, 384, D) embeddings equal to ``embed(tokens)`` against the
-   prefill from those tokens, logits and caches bit for bit.
+   prefill from those tokens, logits and caches bit for bit;
+11. runs the multi-device layer (``parallel.sharding``, ``launch.mesh``,
+   ``parallel.pipeline``, ``checkpoint.reshard``) on a mesh of one rank
+   through NCCL (the script runs on one card, and NCCL takes one rank a
+   device), where every collective is an identity, so every sharded path
+   must give the unsharded bits: (a) qwen3-8b at full width, 4 of 36
+   layers, phase 8's traffic: an unsharded replica saves a checkpoint and
+   takes 2 steps; three replicas of the port's ``ReplicatedTrainer`` each
+   load it, ``reshard`` it onto the (1, 1) ("data", "model") mesh (its
+   digest there equal to the manifest's) and take the same 2 steps through
+   ``make_train_step(cfg, opt_cfg, ctx)``: losses and digests equal bit
+   for bit; then step 0 on the (1, 1, 1) mesh with "pod" and both
+   ``fsdp_gather`` and ``attn_head_shard``, within phase 6's bf16 limit;
+   (b) gemma3-1b and recurrentgemma-2b at full width and depth, a prompt
+   of 384 tokens and 8 greedy tokens through ``make_prefill`` and
+   ``make_serve_step`` with caches laid out by ``cache_pspecs``: tokens,
+   logits and kernel launches equal to the unsharded path's (the SWA and
+   RG-LRU kernels ran on local shards); (c) qwen3-moe-235b-a22b at full
+   width, 2 of 94 layers: the expert-parallel prefill of 384 tokens equal
+   to the unsharded one, logits and caches bit for bit; (d)
+   ``pipeline_apply`` over a one-rank "stage" mesh equal to the stage
+   applied in sequence.  It prints the step and decode times on the mesh
+   beside the unsharded ones and the port's explicit collectives by kind,
+   and checks that the MoE sum, the digest sum and the pipeline's
+   broadcast ran.
 
 Any failure raises.  The line before the last is a JSON object of
 per-kernel numbers (a kernel timed at several shapes lists them under
@@ -94,6 +118,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -108,10 +133,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 try:
-    from repro_torch.checkpoint import load_checkpoint  # noqa: E402
+    from repro_torch.checkpoint import (load_checkpoint, reshard,  # noqa: E402
+                                        save_checkpoint)
     from repro_torch.configs import get_config  # noqa: E402
     from repro_torch.core import crypto  # noqa: E402
     from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
@@ -122,6 +150,7 @@ try:
     from repro_torch.kernels.rglru import rglru_plain  # noqa: E402
     from repro_torch.kernels.swa import swa_plain  # noqa: E402
     from repro_torch.launch import serve  # noqa: E402
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
     from repro_torch.launch.train import train as train_launcher  # noqa: E402
     from repro_torch.models.common import (Transformer,  # noqa: E402
                                            default_blocks, init_params)
@@ -129,8 +158,14 @@ try:
                                                 prefill)
     from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
                                    adamw_update)
+    from repro_torch.parallel import comm  # noqa: E402
+    from repro_torch.parallel.pipeline import pipeline_apply  # noqa: E402
+    from repro_torch.parallel.sharding import (cache_pspecs,  # noqa: E402
+                                               param_pspecs,
+                                               shard_ctx_for_mesh, whole)
     from repro_torch.runtime.attest import fingerprint_tree  # noqa: E402
-    from repro_torch.runtime.steps import make_train_step  # noqa: E402
+    from repro_torch.runtime.steps import (make_prefill,  # noqa: E402
+                                           make_serve_step, make_train_step)
     from repro_torch.runtime.trainer import ReplicatedTrainer  # noqa: E402
 except ImportError as e:
     sys.exit(f"chip_smoke: the port is not importable from {ROOT / 'src'}: {e}")
@@ -1324,6 +1359,321 @@ def phase_moe(card_line: str, fp_row: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the multi-device layout on a mesh of one rank
+# ---------------------------------------------------------------------------
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _same_tree(a, b) -> bool:
+    """Two nests of caches (or lists of tensors) hold the same bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    return torch.equal(whole(a), whole(b))
+
+
+def mesh_train(card_line: str, ctx, ctx_pod, tmp: Path) -> int:
+    """Phase 11a: qwen3-8b at full width, ``TRAIN_LAYERS`` layers, phase
+    8's traffic.  An unsharded replica saves its initial state and takes
+    two steps; the checkpoint is loaded and placed on the (1, 1) mesh by
+    ``reshard`` (its digest there equal to the manifest's) by each of three
+    replicas of ``ReplicatedTrainer``, which take the same two steps
+    through ``make_train_step(cfg, opt_cfg, ctx)``: losses and digests must
+    equal the unsharded replica's bit for bit.  Then step 0 again on the
+    (1, 1, 1) pod mesh with ``fsdp_gather`` and ``attn_head_shard``: the
+    loss and gradients against the unsharded step 0 within phase 6's bf16
+    limit.  Returns the fingerprint launches."""
+    full = get_config("qwen3-8b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS,
+                              blocks=default_blocks(TRAIN_LAYERS))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in pipe.global_batch(s).items()} for s in range(2)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed_step(step_fn, model, opt, b):
+        torch.cuda.synchronize()
+        start.record()
+        opt, m = step_fn(model, opt, b)
+        end.record()
+        end.synchronize()
+        return opt, (float(m["loss"]), m["grad_fp"], m["param_fp"]), \
+            start.elapsed_time(end)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    n_leaves = len(list(model.param_leaves()))
+    t0 = time.perf_counter()
+    fp0 = save_checkpoint(str(tmp), 0, model)
+    save_s = time.perf_counter() - t0
+    opt = adamw_init(model.param_leaves(), opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg)
+    want, whole_ms = [], []
+    for s, b in enumerate(batches):
+        opt, rec, ms = timed_step(step_fn, model, opt, b)
+        want.append(rec)
+        whole_ms.append(ms)
+        if s == 0:       # step 0's gradients, for the check with the flags
+            grads0 = [p.grad.clone() for p in model.param_leaves()]
+    busy = {"unsharded": profile_call(lambda: step_fn(model, opt,
+                                                      batches[1]))}
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # three replicas, each loading the checkpoint and placing it on the mesh
+    models, opts = [], []
+    sharded_fn = make_train_step(cfg, opt_cfg, ctx)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _, m, _ = load_checkpoint(str(tmp), cfg, device="cuda")
+        m = reshard(m, ctx.mesh, param_pspecs(cfg, m, ctx.mesh))
+        check(all(isinstance(p, DTensor) for p in m.param_leaves()),
+              "reshard left a plain parameter")
+        check(fingerprint_tree(m.param_leaves()) == fp0,
+              "the resharded checkpoint's digest differs from the manifest's")
+        models.append(m)
+        opts.append(adamw_init(m.param_leaves(), opt_cfg))
+    load_s = time.perf_counter() - t0
+    got, mesh_ms = {}, {}
+
+    def train_one(idx: int, step: int, data_epoch: int):
+        opts[idx], rec, mesh_ms[idx, step] = timed_step(
+            sharded_fn, models[idx], opts[idx], batches[step])
+        got[idx, step] = rec
+        return rec[1], rec[2], {"loss": rec[0]}
+
+    rt = ReplicatedTrainer.build(train_one)
+    records = rt.run_steps(2)
+    for rec in records:
+        check(len(set(rec["fps"].values())) == 1 and rec["flagged"] == [],
+              f"sharded step {rec['step']}: fingerprints {rec['fps']}")
+    for (idx, step), rec in sorted(got.items()):
+        check(rec == want[step], f"replica t{idx} step {step} on the mesh "
+              f"{rec} != unsharded {want[step]}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy["mesh"] = profile_call(lambda: sharded_fn(models[0], opts[0],
+                                                   batches[1]))
+    del rt, models, opts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # step 0 on the pod mesh with both flags: K/V repeated to H heads
+    flagged = dataclasses.replace(cfg, fsdp_gather=True, attn_head_shard=True)
+    _, m, _ = load_checkpoint(str(tmp), flagged, device="cuda")
+    m = reshard(m, ctx_pod.mesh, param_pspecs(flagged, m, ctx_pod.mesh))
+    opt = adamw_init(m.param_leaves(), opt_cfg)
+    _, rec, _ = timed_step(make_train_step(flagged, opt_cfg, ctx_pod), m, opt,
+                           batches[0])
+    tol = 0.1                       # phase 6's bf16 limit (gemma3-1b's)
+    loss_err = abs(rec[0] - want[0][0]) / (1 + abs(want[0][0]))
+    grad_err = max(float(((whole(p.grad).float() - g.float()).abs()
+                          / (1 + g.float().abs())).max())
+                   for p, g in zip(m.param_leaves(), grads0))
+    check(loss_err <= tol and grad_err <= tol,
+          f"flags on: loss {rec[0]} vs {want[0][0]}, gradient error "
+          f"{grad_err}")
+    launches = dict(ops.launches)
+    del m, opt, grads0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 1 save, 2 steps unsharded and 1 profiled, 3 loads and placements,
+    # 3 x 2 steps on the mesh and 1 profiled, 1 load and 1 step with the
+    # flags: 2 digests a leaf a step
+    expect = {k: 0 for k in launches}
+    expect["fingerprint"] = n_leaves * (1 + 2 * 3 + 3 * 2 + 2 * (3 * 2 + 1)
+                                        + 1 + 2)
+    check(launches == expect, f"mesh train launched {launches}, expected "
+                              f"{expect}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"    {cfg.name} on the (1, 1) mesh: step 1 {mesh_ms[0, 1]:.1f} / "
+          f"{mesh_ms[1, 1]:.1f} / {mesh_ms[2, 1]:.1f} ms (replicas t0-t2) "
+          f"against {whole_ms[1]:.1f} ms unsharded, {tokens / mesh_ms[0, 1] * 1e3:.0f} "
+          f"against {tokens / whole_ms[1] * 1e3:.0f} tokens/s (CUDA events, "
+          f"AdamW and digests included) [{card_line}]")
+    for name, b in busy.items():
+        print(f"    {cfg.name} one profiled step, {name}: "
+              + (f"{b['kernels']} kernels, device busy {b['device_ms']:.1f} "
+                 f"of {b['wall_ms']:.1f} ms wall "
+                 f"({100 * b['busy_share']:.1f}%)" if b.get("device_ms")
+                 else f"not measured: {b}") + f" [{card_line}]")
+    print(f"    {cfg.name} flags on, (1, 1, 1) pod mesh, step 0: loss "
+          f"{rec[0]:.6f} against {want[0][0]:.6f} (error {loss_err:.3g}), "
+          f"largest gradient error {grad_err:.3g} of 1 + |g| (limit {tol}); "
+          f"digests {rec[1]:#010x}/{rec[2]:#010x} against "
+          f"{want[0][1]:#010x}/{want[0][2]:#010x} [{card_line}]")
+    print(f"[11a] {cfg.name} {cfg.n_layers} of {full.n_layers} layers bf16, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: checkpoint saved in "
+          f"{save_s:.1f} s, loaded and resharded by 3 replicas in "
+          f"{load_s:.1f} s (digest == manifest {fp0:#010x}); 2 steps on the "
+          f"mesh == unsharded bit for bit (losses "
+          f"{', '.join(f'{w[0]:.6f}' for w in want)}, digests equal), "
+          f"replicas agree; peak {peak_gb:.2f} GB; launches {launches} "
+          f"[{card_line}]")
+    return launches["fingerprint"]
+
+
+def mesh_serve(card_line: str, ctx, arch: str, kernels) -> dict:
+    """Phase 11b: ``arch`` at full width and depth served greedily on one
+    prompt of 384 tokens, 8 new, unsharded and then placed on the mesh
+    through ``make_prefill`` and ``make_serve_step`` with the caches laid
+    out by ``cache_pspecs``: tokens, logits and launches must be equal."""
+    cfg = get_config(arch)
+    prompt = torch.randint(0, cfg.vocab, (1, 384),
+                           generator=torch.Generator().manual_seed(6)).cuda()
+    max_seq = 384 + 8
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    runs = {}
+    for name, c in (("unsharded", None), ("mesh", ctx)):
+        if c is not None:
+            reshard(model, c.mesh, param_pspecs(cfg, model, c.mesh))
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = make_prefill(cfg, c, max_seq=max_seq)(model, prompt)
+        if c is not None:
+            caches = reshard(caches, c.mesh, cache_pspecs(cfg, caches, c.mesh))
+        out = [whole(logits)]
+        tok = torch.argmax(out[-1], -1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(7):
+            logits, caches = make_serve_step(cfg, c)(model, caches, tok,
+                                                     384 + i)
+            out.append(whole(logits))
+            tok = torch.argmax(out[-1], -1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        runs[name] = dict(logits=out, launches=dict(ops.launches),
+                          prefill_ms=(t1 - t0) * 1e3, tok_s=7 / (t2 - t1),
+                          tokens=[int(x.argmax(-1)[0]) for x in out],
+                          busy=profile_call(lambda: make_prefill(
+                              cfg, c, max_seq=max_seq)(model, prompt)))
+    u, m = runs["unsharded"], runs["mesh"]
+    check(m["tokens"] == u["tokens"], f"{arch}: tokens on the mesh "
+          f"{m['tokens']} != unsharded {u['tokens']}")
+    check(all(torch.equal(a, b) for a, b in zip(m["logits"], u["logits"])),
+          f"{arch}: logits on the mesh differ from the unsharded ones")
+    check(m["launches"] == u["launches"]
+          and all(m["launches"][k] > 0 for k in kernels),
+          f"{arch}: launches on the mesh {m['launches']}, unsharded "
+          f"{u['launches']}")
+    print(f"    {arch} {cfg.n_layers} layers: prefill of 384 "
+          f"{m['prefill_ms']:.1f} ms on the mesh against "
+          f"{u['prefill_ms']:.1f} ms unsharded; decode "
+          f"{m['tok_s']:.1f} against {u['tok_s']:.1f} tokens/s (batch 1, "
+          f"host clock); a profiled prefill: "
+          + "; ".join(f"{name} {r['busy']['kernels']} kernels, device busy "
+                      f"{r['busy']['device_ms']:.1f} of "
+                      f"{r['busy']['wall_ms']:.1f} ms"
+                      if r["busy"].get("device_ms") else f"{name} not measured"
+                      for name, r in runs.items()) + f" [{card_line}]")
+    print(f"[11b] {arch} at full width on the (1, 1) mesh, caches by "
+          f"cache_pspecs: 8 greedy tokens {m['tokens']} and every logit == "
+          f"unsharded; launches {m['launches']} == unsharded [{card_line}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return m["launches"]
+
+
+def mesh_moe(card_line: str, ctx) -> None:
+    """Phase 11c: qwen3-moe-235b-a22b at full width, 2 layers, a prefill of
+    384 tokens through the expert-parallel branch on the mesh against the
+    unsharded prefill: logits and caches bit for bit."""
+    full = get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=2, blocks=default_blocks(2))
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, 384),
+                         generator=torch.Generator().manual_seed(7)).cuda()
+    logits, caches = prefill(model, toks, max_seq=392)
+    reshard(model, ctx.mesh, param_pspecs(cfg, model, ctx.mesh))
+    before = comm.collectives.get("moe", 0)
+    got, got_caches = make_prefill(cfg, ctx, max_seq=392)(model, toks)
+    n_moe = comm.collectives.get("moe", 0) - before
+    check(n_moe == cfg.n_layers, f"{n_moe} expert-parallel sums for "
+                                 f"{cfg.n_layers} MoE layers")
+    check(torch.equal(whole(got), logits) and _same_tree(got_caches, caches),
+          "qwen3-moe: the expert-parallel prefill differs from the unsharded "
+          "one")
+    n_params = sum(p.numel() for p in model.param_leaves())
+    print(f"[11c] {cfg.name} {cfg.n_layers} of {full.n_layers} layers bf16 "
+          f"({n_params / 1e9:.2f} B params): expert-parallel prefill of 384 "
+          f"tokens on the (1, 1) mesh == unsharded, logits and caches bit "
+          f"for bit ({n_moe} expert sums) [{card_line}]")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_pipeline(card_line: str) -> None:
+    """Phase 11d: ``pipeline_apply`` over a one-rank "stage" mesh equals
+    the stage applied in sequence."""
+    mesh = make_mesh((1,), ("stage",), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    d = 4096
+    ws = (torch.randn(1, d, d, generator=gen, device="cuda") / d ** 0.5
+          ).to(torch.bfloat16)
+    x = torch.randn(4, 2, d, generator=gen, device="cuda").to(torch.bfloat16)
+    out = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, x, mesh)
+    check(torch.equal(out, torch.tanh(x @ ws[0])),
+          "the one-stage pipeline differs from the stage")
+    print(f"[11d] pipeline_apply over a one-rank stage mesh (4 microbatches "
+          f"of 2 x {d} bf16) == the stage in sequence [{card_line}]")
+
+
+def phase_mesh(card_line: str) -> dict:
+    """Phase 11: the multi-device layer on a mesh of one rank through
+    NCCL, where every collective is an identity, so every sharded path must
+    give the unsharded bits.  Returns the kernel launches of its paths."""
+    t_phase = time.perf_counter()
+    serve.set_deterministic()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    launches = {name: 0 for name in cuda.SOURCES}
+    tmp = Path(tempfile.mkdtemp(prefix=".ckpt_", dir=ROOT))
+    try:
+        ctx = shard_ctx_for_mesh(make_host_mesh("cuda"))
+        ctx_pod = shard_ctx_for_mesh(make_mesh((1, 1, 1),
+                                               ("pod", "data", "model"),
+                                               "cuda"))
+        comm.reset_collectives()
+        launches["fingerprint"] += mesh_train(card_line, ctx, ctx_pod, tmp)
+        for arch, kernels in (("gemma3-1b", ("swa",)),
+                              ("recurrentgemma-2b", ("rglru", "swa"))):
+            for name, n in mesh_serve(card_line, ctx, arch, kernels).items():
+                launches[name] += n
+        mesh_moe(card_line, ctx)
+        mesh_pipeline(card_line)
+        issued = dict(comm.collectives)
+        check(all(issued.get(k, 0) > 0 for k in ("moe", "digest",
+                                                 "pipeline_broadcast")),
+              f"an explicit collective did not run: {issued}")
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+    print(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s; "
+          f"explicit collectives by kind {issued}; launches {launches} "
+          f"[{card_line}]")
+    return launches
+
+
 def file_digest(path: Path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -1367,6 +1717,8 @@ def main() -> int:
     launches["fingerprint"] += phase_train(card_line)
     launches["fingerprint"] += phase_recurrent_train(card_line)
     for name, n in phase_moe(card_line, fp).items():
+        launches[name] += n
+    for name, n in phase_mesh(card_line).items():
         launches[name] += n
     check(all(n > 0 for n in launches.values()),
           f"a kernel was never launched on the main paths: {launches}")

@@ -21,6 +21,10 @@ array (``_reconstruct``, then the shape, the dtype and the raw bytes),
 naming ``ml_dtypes.bfloat16`` without importing it, and streams the bytes
 into the file; ``_Unpickler`` accepts only those globals and makes each
 array a tensor.
+
+``reshard`` re-lays-out a checkpoint onto a mesh (elastic scaling: a job
+restarted at a different size keeps training); a sharded model is saved
+as whole tensors, which either package loads.
 """
 
 from __future__ import annotations
@@ -34,10 +38,13 @@ from typing import Any, BinaryIO, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import bridge
 from repro_torch.models.common import ModelConfig, Transformer
 from repro_torch.optim.adamw import State
+from repro_torch.parallel.sharding import distribute_tree, whole
 from repro_torch.runtime.attest import fingerprint_tree
 
 #: where this numpy keeps ``_reconstruct`` (``numpy._core.multiarray`` from
@@ -216,15 +223,22 @@ def save_checkpoint(path: str, step: int, model: Transformer,
                     opt_state: Optional[State] = None,
                     meta: Optional[Dict] = None) -> int:
     """Writes the checkpoint and returns the fingerprint of the parameters
-    (one fingerprint launch per leaf on the card)."""
-    os.makedirs(path, exist_ok=True)
+    (one fingerprint launch per leaf on the card).  A sharded model (and
+    its state) is gathered into whole tensors, which rank 0 writes while
+    the others wait: every rank of the mesh calls this."""
     params = list(model.param_leaves())
     fp = fingerprint_tree(params)
+    sharded = isinstance(params[0], DTensor)
+    params = [whole(p) for p in params]
     opt = None
     if opt_state is not None:
-        opt = {key: bridge.jax_tree(model, opt_state[key])
+        opt = {key: bridge.jax_tree(model, [whole(t) for t in opt_state[key]])
                for key in ("mu", "nu", "master")}
         opt["count"] = opt_state["count"]
+    if sharded and dist.get_rank() != 0:
+        dist.barrier()
+        return fp
+    os.makedirs(path, exist_ok=True)
     state = {"step": step, "params": bridge.jax_tree(model, params),
              "opt_state": opt}
     tmp = os.path.join(path, f"ckpt_{step}.tmp")
@@ -235,6 +249,8 @@ def save_checkpoint(path: str, step: int, model: Transformer,
     manifest = {"step": step, "fingerprint": fp, "meta": meta or {}}
     with open(os.path.join(path, f"ckpt_{step}.json"), "w") as f:
         json.dump(manifest, f)
+    if sharded:
+        dist.barrier()
     return fp
 
 
@@ -271,3 +287,10 @@ def load_checkpoint(path: str, cfg: ModelConfig, step: Optional[int] = None,
     if opt is not None:
         opt = bridge.opt_state_from_jax(opt, model, device)
     return state["step"], model, opt
+
+
+def reshard(tree: Any, mesh, specs: Any) -> Any:
+    """Place a host tree (a model as ``load_checkpoint`` returns it, a list
+    of leaves, or caches) onto ``mesh`` by ``specs``, e.g.
+    ``parallel.param_pspecs(cfg, model, mesh)``."""
+    return distribute_tree(mesh, tree, specs)

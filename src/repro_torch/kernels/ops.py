@@ -1,8 +1,10 @@
 """Public wrappers around the CUDA kernels.
 
 A wrapper launches its kernel for a CUDA tensor and runs the kernel's plain
-version for a CPU tensor; there is no fallback from one to the other.  The
-SWA, RG-LRU and mLSTM kernels are forward only: their wrappers raise for
+version for a CPU tensor; there is no fallback from one to the other.  A
+kernel takes raw pointers, which a DTensor does not have: the wrappers
+raise on one, and the model calls them on local shards (``local_map``).
+The SWA, RG-LRU and mLSTM kernels are forward only: their wrappers raise for
 CUDA inputs that autograd would differentiate, rather than return a result
 that silently drops the gradient.
 ``launches`` counts kernel launches by name (see ``kernels.cuda``).
@@ -14,6 +16,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.cuda import launches, reset_launches
 from repro_torch.kernels.fingerprint import fingerprint_cuda, fingerprint_plain
@@ -27,6 +30,9 @@ __all__ = ["fingerprint", "launches", "mlstm_chunkwise",
 
 
 def _on_cuda(*xs: torch.Tensor) -> bool:
+    if any(isinstance(x, DTensor) for x in xs):
+        raise TypeError("the kernels take local tensors, not DTensors: call "
+                        "them on local shards (local_map)")
     devices = {x.device.type for x in xs}
     if devices == {"cuda"}:
         return True

@@ -63,6 +63,9 @@ class ModelConfig:
     q_chunk: int = 512
     mlstm_chunk: int = 256
     attest: bool = True          # fingerprint grads/params each step (uBFT)
+    # multi-device layout (with a ``ShardCtx`` only; no effect without one)
+    fsdp_gather: bool = False    # gather each layer's weights over "data"
+    attn_head_shard: bool = False  # expand KV to H heads, shard the heads
 
     @property
     def dh(self) -> int:
@@ -226,15 +229,28 @@ class Transformer(nn.Module):
                 for spec in pattern)
             for pattern, reps in cfg.blocks)
 
-    def param_leaves(self) -> Iterator[torch.Tensor]:
-        """Parameters in ``jax.tree.leaves`` order of the JAX pytree (dict
-        keys sorted at every level), which ``fingerprint_tree`` hashes in."""
-        yield self.embed
-        for group in self.groups:
-            for pos in group:
+    def leaf_items(self) -> Iterator[Tuple[Tuple, torch.Tensor]]:
+        """(path, parameter) in ``jax.tree.leaves`` order of the JAX pytree
+        (dict keys sorted at every level), the path as JAX's:
+        ``("embed",)``, ``("groups", g, pos, name)``, ``("out_norm",)``."""
+        yield ("embed",), self.embed
+        for g, group in enumerate(self.groups):
+            for i, pos in enumerate(group):
                 for k in sorted(pos.keys()):
-                    yield pos[k]
-        yield self.out_norm
+                    yield ("groups", g, i, k), pos[k]
+        yield ("out_norm",), self.out_norm
+
+    def param_leaves(self) -> Iterator[torch.Tensor]:
+        """Parameters in ``leaf_items`` order, which ``fingerprint_tree``
+        hashes in."""
+        return (t for _, t in self.leaf_items())
+
+    def set_leaf(self, path: Tuple, value: nn.Parameter) -> None:
+        """Replace the parameter at ``path`` (a path of ``leaf_items``)."""
+        if path[0] == "groups":
+            self.groups[path[1]][path[2]][path[3]] = value
+        else:
+            setattr(self, path[0], value)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

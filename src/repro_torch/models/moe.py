@@ -12,6 +12,13 @@ expert index, in the activation dtype.  Every step is a gather, a sort or
 a scatter with unique targets, so the result has the same bits on every
 run on the card under ``torch.use_deterministic_algorithms(True)``, and no
 step has a shape that depends on the data.
+
+On a mesh (a ``ShardCtx``), ``moe_ffn`` runs the reference's
+expert-parallel branch: the experts are cut over "model", each rank runs
+``moe_ffn_local`` on its slice of experts and the tokens of its data
+shard, and the slices' contributions are summed over "model".  The
+capacity is then that of the data shard's T, as inside the reference's
+``shard_map``: a sharded run drops other tokens than an unsharded one.
 """
 
 from __future__ import annotations
@@ -21,8 +28,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial
 
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel import comm, sharding
+
+_EXPERTS = ("router", "w_gate", "w_up", "w_down")
 
 
 def _capacity(T: int, k: int, E: int, cf: float) -> int:
@@ -102,8 +113,45 @@ def dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-            x: torch.Tensor) -> torch.Tensor:
-    """MoE FFN over (B, S, D) activations, every expert on this device."""
+            x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """MoE FFN over (B, S, D) activations: every expert on this device, or
+    with a context expert-parallel over its "model" axis."""
+    if ctx is not None:
+        return _moe_ffn_sharded(cfg, p, x, ctx)
     B, S, D = x.shape
     out = moe_ffn_local(cfg, p, x.reshape(B * S, D), 0, cfg.moe.n_experts)
     return out.reshape(B, S, D)
+
+
+def _moe_ffn_sharded(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                     x: torch.Tensor, ctx) -> torch.Tensor:
+    """The reference's ``shard_map`` of ``moe_ffn``: x (B, S, D) by batch
+    over the data axes, the router whole, the experts cut over "model"
+    (E divisible by its size); out like x, summed over "model"."""
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    e_local = cfg.moe.n_experts // ctx.tp_size
+    e0 = mesh.get_local_rank(tp) * e_local
+    group = mesh.get_group(tp)
+    x_spec = sharding._divisible((ctx.dp_axes, None, None), tuple(x.shape),
+                                 mesh)
+    specs = {"router": (None, None), "w_gate": (tp, None, None),
+             "w_up": (tp, None, None), "w_down": (tp, None, None)}
+    # gradients: a rank sees the tokens of its data shard and the routes to
+    # its experts only, so each input's gradient is a partial sum over the
+    # axes that cut what it feeds
+    grads = [sharding.weight_grad(specs[k], x_spec, mesh) for k in _EXPERTS]
+    grads[0] = tuple(Partial() if a == tp else pl
+                     for a, pl in zip(mesh.mesh_dim_names, grads[0]))
+    grads.append(tuple(Partial() if a == tp else pl for a, pl in zip(
+        mesh.mesh_dim_names, sharding.placements(x_spec, mesh))))
+
+    def local(router, w_gate, w_up, w_down, xl):
+        B, S, D = xl.shape
+        lp = {"router": router, "w_gate": w_gate, "w_up": w_up,
+              "w_down": w_down}
+        out = moe_ffn_local(cfg, lp, xl.reshape(B * S, D), e0, e_local)
+        return comm.psum(out, group, "moe").reshape(B, S, D)
+
+    return sharding.on_shards(local, mesh,
+                              [specs[k] for k in _EXPERTS] + [x_spec], x_spec,
+                              grads)(*(p[k] for k in _EXPERTS), x)

@@ -21,6 +21,12 @@ one forward and refuse in the recompute.
 
 Decode forms: single-step state updates that return new state tensors; the
 state replaces the KV cache.
+
+On a mesh (a ``ShardCtx``), the kernels and their plain versions run on
+each rank's local shards: the mLSTM on its batch rows and, where the head
+count divides, its heads; the RG-LRU's causal conv and scan on its batch
+rows and lanes, which ``lam``, ``wa`` and ``wx`` put on "model".  Both are
+exact per head or lane.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.mlstm import mlstm_plain
 from repro_torch.kernels.rglru import rglru_plain
 from repro_torch.models.common import ModelConfig, rms_norm, weak_scalar
+from repro_torch.parallel import sharding
 
 State = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -53,16 +60,16 @@ def _mlstm_gates(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
     H, dh = cfg.n_heads, cfg.dh
     y = x @ p["wq"]
     scale = weak_scalar(dh ** -0.5, y)
-    q = y.reshape(B, S, H, dh) * scale
-    k = (x @ p["wk"]).reshape(B, S, H, dh) * scale
-    v = (x @ p["wv"]).reshape(B, S, H, dh)
+    q = sharding.unflatten(y, -1, (H, dh)) * scale
+    k = sharding.unflatten(x @ p["wk"], -1, (H, dh)) * scale
+    v = sharding.unflatten(x @ p["wv"], -1, (H, dh))
     it = (x @ p["wi"]).float()                               # (B, S, H)
     ft = (x @ p["wf"]).float() + p["bf"].float()
     return q, k, v, it, ft
 
 
 def mlstm_train(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                chunk: int = 256, train: bool = False
+                chunk: int = 256, train: bool = False, ctx=None
                 ) -> Tuple[torch.Tensor, State]:
     """Chunkwise-parallel mLSTM. x: (B, S, D) -> ((B, S, H·dh), state);
     through the kernel, or with ``train`` through its plain version.
@@ -79,17 +86,41 @@ def mlstm_train(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         x = F.pad(x, (0, 0, 0, pad))
     q, k, v, it, ft = _mlstm_gates(cfg, p, x)
     chunkwise = mlstm_plain if train else ops.mlstm_chunkwise_state
-    h, (C, n, m) = chunkwise(q, k, v, it, ft, c)
+    if ctx is None:
+        h, (C, n, m) = chunkwise(q, k, v, it, ft, c)
+    else:
+        h, C, n, m = _mlstm_on_shards(cfg, ctx, chunkwise, q, k, v, it, ft, c)
     h = h.reshape(B, S + pad, H * dh)[:, :S]
     return h, {"C": C, "n": n, "m": m}
 
 
+def _mlstm_on_shards(cfg: ModelConfig, ctx, chunkwise, q, k, v, it, ft,
+                     c: int):
+    """``chunkwise`` on each rank's batch rows and heads: q/k/v (B, S, H,
+    dh), it/ft (B, S, H) -> h and the final (C, n, m), cut alike."""
+    shape = tuple(q.shape)
+    heads = ctx.tp_axis if cfg.n_heads % ctx.tp_size == 0 else None
+    qs = sharding._divisible((ctx.dp_axes, None, heads, None), shape,
+                             ctx.mesh)
+    gs = qs[:3]
+
+    def run(q, k, v, it, ft):
+        h, (C, n, m) = chunkwise(q, k, v, it, ft, c)
+        return h, C, n, m
+
+    return sharding.on_shards(
+        run, ctx.mesh, (qs, qs, qs, gs, gs),
+        [qs, (qs[0], qs[2], None, None), (qs[0], qs[2], None),
+         (qs[0], qs[2])])(q, k, v, it, ft)
+
+
 def mlstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                train: bool = False) -> Tuple[torch.Tensor, State]:
+                train: bool = False, ctx=None) -> Tuple[torch.Tensor, State]:
     """Full mLSTM residual block: norm → mLSTM → out-proj → gated MLP.
     Returns (output, state)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    inner, state = mlstm_train(cfg, p, h, chunk=cfg.mlstm_chunk, train=train)
+    inner, state = mlstm_train(cfg, p, h, chunk=cfg.mlstm_chunk, train=train,
+                               ctx=ctx)
     y = inner @ p["wo"] + _gated_mlp(p, h)
     return x + y, state
 
@@ -143,13 +174,14 @@ def _slstm_cell(p, zt, it, ft, ot, c_prev, h_prev, m_prev):
 
 def _slstm_inputs(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                   hin: torch.Tensor):
-    B, S, D = hin.shape
+    D = hin.shape[-1]
     H = cfg.n_heads
-    shape = (B, S, H, D // H)
-    return ((hin @ p["wz"]).reshape(shape),
-            (hin @ p["wi"]).float().reshape(shape),
-            (hin @ p["wf"]).float().reshape(shape),
-            (hin @ p["wo_gate"]).reshape(shape))
+
+    def heads(y):
+        return sharding.unflatten(y, -1, (H, D // H))
+
+    return (heads(hin @ p["wz"]), heads((hin @ p["wi"]).float()),
+            heads((hin @ p["wf"]).float()), heads(hin @ p["wo_gate"]))
 
 
 def slstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
@@ -210,16 +242,28 @@ def _rglru_gates(p: Dict[str, torch.Tensor], uc: torch.Tensor):
 
 
 def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                train: bool = False) -> Tuple[torch.Tensor, State]:
+                train: bool = False, ctx=None) -> Tuple[torch.Tensor, State]:
     """RG-LRU residual block: in-proj → conv1d(4) → gated linear recurrence
     (the RG-LRU kernel, or with ``train`` its plain version) → out-proj.
     Returns (output, state)."""
     S = x.shape[1]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     u, gate = torch.chunk(h @ p["w_in"], 2, dim=-1)          # (B, S, F) ×2
-    uc = _causal_conv4(u, p["conv"])
-    a, xin = _rglru_gates(p, uc)
-    y = rglru_plain(a, xin) if train else ops.rglru_scan(a, xin)
+    scan = rglru_plain if train else ops.rglru_scan
+    if ctx is None:
+        uc = _causal_conv4(u, p["conv"])
+        a, xin = _rglru_gates(p, uc)
+        y = scan(a, xin)
+    else:
+        lanes = sharding._divisible((ctx.dp_axes, None, ctx.tp_axis),
+                                    tuple(u.shape), ctx.mesh)
+        w_spec = (None, lanes[2])
+        uc = sharding.on_shards(
+            _causal_conv4, ctx.mesh, (lanes, w_spec), lanes,
+            (sharding.placements(lanes, ctx.mesh),
+             sharding.weight_grad(w_spec, lanes, ctx.mesh)))(u, p["conv"])
+        a, xin = _rglru_gates(p, uc)
+        y = sharding.on_shards(scan, ctx.mesh, (lanes, lanes), lanes)(a, xin)
     out_gated = (y * F.gelu(gate.float(), approximate="tanh")).to(x.dtype)
     out = x + out_gated @ p["w_out"]
     # decode state: last recurrence value + last 3 raw conv inputs

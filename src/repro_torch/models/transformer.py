@@ -10,12 +10,20 @@ JAX's ``lax.scan`` over a group's ``reps`` becomes a Python loop; the
 caches keep JAX's nesting (per group, per pattern position, a dict of
 tensors stacked over ``reps``): attention KV caches, or the state of a
 recurrent layer.
+
+``ShardCtx`` carries a device mesh.  Given one, the entry points take a
+model placed by ``parallel.sharding`` (DTensor parameters) and run on
+DTensors: activations are laid out where the reference constrains them,
+with ``cfg.fsdp_gather`` each layer's weights are gathered over "data",
+MoE layers run expert-parallel, and the kernels run on local shards.
+Without one, every function runs the single-device code.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -24,12 +32,35 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models import recurrent as rec
 from repro_torch.models.attention import (attention_train, decode_attention,
                                           init_cache, prefill_attention,
-                                          qkv_project)
+                                          qkv_project, sharded_attention)
 from repro_torch.models.common import (LayerSpec, ModelConfig, Transformer,
                                        rms_norm, weak_scalar)
 from repro_torch.models.moe import dense_ffn, moe_ffn
+from repro_torch.parallel import comm, sharding
 
 Caches = Tuple[Tuple[Dict[str, torch.Tensor], ...], ...]
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """A device mesh and the roles of its axes (``sharding.
+    shard_ctx_for_mesh`` makes one)."""
+    mesh: Any                                # a DeviceMesh
+    dp_axes: Tuple[str, ...] = ("data",)     # batch axes (may include "pod")
+    tp_axis: str = "model"
+
+    @property
+    def tp_size(self) -> int:
+        return sharding.axis_sizes(self.mesh)[self.tp_axis]
+
+
+def _constrain(x: torch.Tensor, ctx: Optional[ShardCtx], spec) -> torch.Tensor:
+    """``x`` laid out by ``spec`` (as far as its shape divides) on the
+    context's mesh; without a context, ``x``."""
+    if ctx is None:
+        return x
+    return sharding.place(x, ctx.mesh,
+                          sharding._divisible(spec, tuple(x.shape), ctx.mesh))
 
 
 def _layer(stacked, r: int) -> Dict[str, torch.Tensor]:
@@ -37,28 +68,87 @@ def _layer(stacked, r: int) -> Dict[str, torch.Tensor]:
 
 
 def _ffn_part(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, ctx: Optional[ShardCtx] = None
+              ) -> torch.Tensor:
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + (moe_ffn(cfg, p, h) if cfg.moe is not None
+    return x + (moe_ffn(cfg, p, h, ctx) if cfg.moe is not None
                 else dense_ffn(p, h))
 
 
-def embed(model: Transformer, inputs: torch.Tensor) -> torch.Tensor:
+def _fsdp_gather(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                 ctx: Optional[ShardCtx]) -> Dict[str, torch.Tensor]:
+    """With ``cfg.fsdp_gather``: each weight of a layer laid out by its
+    compute spec, which drops the FSDP axis (the small weight is gathered
+    over "data" rather than the large activations reduced)."""
+    if ctx is None or not cfg.fsdp_gather:
+        return p
+    return {k: _constrain(v, ctx, sharding.weight_compute_spec(
+                k, tuple(v.shape), ctx.mesh)) if v.ndim >= 2 else v
+            for k, v in p.items()}
+
+
+def _table(model: Transformer, ctx: Optional[ShardCtx]) -> torch.Tensor:
+    table = model.embed
+    if ctx is not None and model.cfg.fsdp_gather:
+        table = _constrain(table, ctx, sharding.weight_compute_spec(
+            "embed", tuple(table.shape), ctx.mesh))
+    return table
+
+
+def _embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+                ctx: ShardCtx) -> torch.Tensor:
+    """``table[tokens]`` with the table's vocab cut over "model" (a
+    vocab-parallel lookup): each rank gathers the rows it holds for its
+    batch shard, zeros the rest, and the ranks' rows are summed over
+    "model"."""
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    t_spec = sharding._divisible((tp, None), tuple(table.shape), mesh)
+    tok_spec = sharding._divisible((ctx.dp_axes, None), tuple(tokens.shape),
+                                   mesh)
+    cut = t_spec[0] is not None
+    group = mesh.get_group(tp)
+    tok_pl = sharding.placements(tok_spec, mesh)
+    t_grad = sharding.weight_grad(t_spec, tok_spec, mesh)
+
+    def local(tab, tok):
+        n = tab.shape[0]
+        idx = tok - mesh.get_local_rank(tp) * n if cut else tok
+        mine = (idx >= 0) & (idx < n)
+        rows = torch.where(mine[..., None], tab[torch.where(mine, idx, 0)], 0)
+        return comm.psum(rows, group, "embed") if cut else rows
+
+    return sharding.on_shards(local, mesh, (t_spec, tok_spec),
+                              tok_spec + (None,), (t_grad, tok_pl))(table,
+                                                                    tokens)
+
+
+def embed(model: Transformer, inputs: torch.Tensor,
+          ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """inputs: (B, S) integer tokens -> (B, S, D) rows of the table scaled
     by sqrt(d_model); or (B, S, D) frontend embeddings, cast to the model's
-    dtype and not scaled."""
+    dtype and not scaled.  With a context, a plain ``inputs`` (every rank
+    holds it whole) is first cut by batch over the data axes."""
     cfg = model.cfg
+    if ctx is not None:
+        inputs = _constrain(inputs, ctx, (ctx.dp_axes,))
     if inputs.is_floating_point():
-        return inputs.to(cfg.tdtype())
-    table = model.embed
-    return (table[inputs] * weak_scalar(cfg.d_model ** 0.5, table)
-            ).to(cfg.tdtype())
+        x = inputs.to(cfg.tdtype())
+    else:
+        table = _table(model, ctx)
+        rows = table[inputs] if ctx is None else _embed_rows(table, inputs,
+                                                             ctx)
+        x = (rows * weak_scalar(cfg.d_model ** 0.5, table)).to(cfg.tdtype())
+    return _constrain(x, ctx, (ctx.dp_axes, None, None)) if ctx else x
 
 
-def logits_fn(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+def logits_fn(model: Transformer, x: torch.Tensor,
+              ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Tied head: (B, S, D) -> (B, S, V) logits against ``embed.T``."""
     x = rms_norm(x, model.out_norm, model.cfg.norm_eps)
-    return x @ model.embed.T
+    logits = x @ _table(model, ctx).T
+    if ctx is not None:
+        logits = _constrain(logits, ctx, (ctx.dp_axes, None, ctx.tp_axis))
+    return logits
 
 
 def init_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -89,35 +179,37 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def _apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p, x, positions,
-                         max_seq: int):
+                         max_seq: int, ctx: Optional[ShardCtx] = None):
+    p = _fsdp_gather(cfg, p, ctx)
     if spec.kind == "attn":
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         cache = init_cache(cfg, spec.window, x.shape[0], max_seq, cfg.tdtype(),
                            x.device)
         attn_out, new_cache = prefill_attention(cfg, p, h, spec.window,
-                                                positions, cache)
-        return _ffn_part(cfg, p, x + attn_out), new_cache
+                                                positions, cache, ctx=ctx)
+        return _ffn_part(cfg, p, x + attn_out, ctx), new_cache
     if spec.kind == "mlstm":
-        return rec.mlstm_block(cfg, p, x)
+        return rec.mlstm_block(cfg, p, x, ctx=ctx)
     if spec.kind == "slstm":
         return rec.slstm_block(cfg, p, x)
     if spec.kind == "rglru":
-        x, st = rec.rglru_block(cfg, p, x)
+        x, st = rec.rglru_block(cfg, p, x, ctx=ctx)
         if spec.has_ffn:
-            x = _ffn_part(cfg, p, x)
+            x = _ffn_part(cfg, p, x, ctx)
         return x, st
     raise ValueError(spec.kind)
 
 
 def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
-                        cache: Dict[str, torch.Tensor], position: int
-                        ) -> torch.Tensor:
+                        cache: Dict[str, torch.Tensor], position: int,
+                        ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """One layer of a decode step.  ``cache`` holds this layer's views into
     the stacked caches; they are updated in place."""
+    p = _fsdp_gather(cfg, p, ctx)
     if spec.kind == "attn":
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        attn_out, _ = decode_attention(cfg, p, h, cache, position)
-        return _ffn_part(cfg, p, x + attn_out)
+        attn_out, _ = decode_attention(cfg, p, h, cache, position, ctx=ctx)
+        return _ffn_part(cfg, p, x + attn_out, ctx)
     step = {"mlstm": rec.mlstm_step, "slstm": rec.slstm_step,
             "rglru": rec.rglru_step}.get(spec.kind)
     if step is None:
@@ -126,52 +218,58 @@ def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
     for k, t in new_state.items():
         cache[k].copy_(t)
     if spec.kind == "rglru" and spec.has_ffn:
-        x = _ffn_part(cfg, p, x)
+        x = _ffn_part(cfg, p, x, ctx)
     return x
 
 
 @torch.no_grad()
 def prefill(model: Transformer, inputs: torch.Tensor,
-            max_seq: Optional[int] = None) -> Tuple[torch.Tensor, Caches]:
+            max_seq: Optional[int] = None, ctx: Optional[ShardCtx] = None
+            ) -> Tuple[torch.Tensor, Caches]:
     """Run the whole prompt, building caches.  inputs: (B, S) tokens or
-    (B, S, D) embeddings.  Returns (last position's logits (B, V), caches)."""
+    (B, S, D) embeddings.  Returns (last position's logits (B, V), caches);
+    with a context, DTensors (lay the caches out by
+    ``sharding.cache_pspecs`` for decode)."""
     cfg = model.cfg
     B, S = inputs.shape[:2]
     max_seq = max_seq or S
-    x = embed(model, inputs)
-    positions = torch.arange(S, device=inputs.device).expand(B, S)
-    new_groups = []
-    for (pattern, reps), stacked_g in zip(cfg.blocks, model.groups):
-        per_rep = []
-        for r in range(reps):
-            states = []
-            for spec, stacked in zip(pattern, stacked_g):
-                x, st = _apply_layer_prefill(cfg, spec, _layer(stacked, r), x,
-                                             positions, max_seq)
-                states.append(st)
-            per_rep.append(states)
-        new_groups.append(tuple(
-            {k: torch.stack([rep[i][k] for rep in per_rep])
-             for k in per_rep[0][i]}
-            for i in range(len(pattern))))
-    logits = logits_fn(model, x[:, -1:])
+    with sharding.mesh_mode(ctx):
+        x = embed(model, inputs, ctx)
+        positions = torch.arange(S, device=inputs.device).expand(B, S)
+        new_groups = []
+        for (pattern, reps), stacked_g in zip(cfg.blocks, model.groups):
+            per_rep = []
+            for r in range(reps):
+                states = []
+                for spec, stacked in zip(pattern, stacked_g):
+                    x, st = _apply_layer_prefill(cfg, spec, _layer(stacked, r),
+                                                 x, positions, max_seq, ctx)
+                    states.append(st)
+                per_rep.append(states)
+            new_groups.append(tuple(
+                {k: torch.stack([rep[i][k] for rep in per_rep])
+                 for k in per_rep[0][i]}
+                for i in range(len(pattern))))
+        logits = logits_fn(model, x[:, -1:], ctx)
     return logits[:, 0], tuple(new_groups)
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
-                position: int) -> Tuple[torch.Tensor, Caches]:
+                position: int, ctx: Optional[ShardCtx] = None
+                ) -> Tuple[torch.Tensor, Caches]:
     """tokens: (B,) integer at global ``position``.  Returns (logits (B, V),
     caches); the caches are updated in place."""
     cfg = model.cfg
-    x = embed(model, tokens[:, None])
-    for (pattern, reps), stacked_g, caches_g in zip(cfg.blocks, model.groups,
-                                                    caches):
-        for r in range(reps):
-            for spec, stacked, cache in zip(pattern, stacked_g, caches_g):
-                x = _apply_layer_decode(cfg, spec, _layer(stacked, r), x,
-                                        _layer(cache, r), position)
-    logits = logits_fn(model, x)
+    with sharding.mesh_mode(ctx):
+        x = embed(model, tokens[:, None], ctx)
+        for (pattern, reps), stacked_g, caches_g in zip(cfg.blocks,
+                                                        model.groups, caches):
+            for r in range(reps):
+                for spec, stacked, cache in zip(pattern, stacked_g, caches_g):
+                    x = _apply_layer_decode(cfg, spec, _layer(stacked, r), x,
+                                            _layer(cache, r), position, ctx)
+        logits = logits_fn(model, x, ctx)
     return logits[:, 0], caches
 
 
@@ -180,24 +278,30 @@ def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 def apply_layer_train(cfg: ModelConfig, spec: LayerSpec,
                       p: Dict[str, torch.Tensor], x: torch.Tensor,
-                      positions: torch.Tensor) -> torch.Tensor:
+                      positions: torch.Tensor,
+                      ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """One layer of the training forward.  Attention takes the plain banded
     or chunked path, as JAX's does; the recurrent kinds take their training
     forms, which call no forward-only kernel."""
+    p = _fsdp_gather(cfg, p, ctx)
     if spec.kind == "attn":
         B, S = x.shape[:2]
         q, k, v = qkv_project(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps),
                               positions)
-        out = attention_train(cfg, q, k, v, spec.window)
+        if ctx is None:
+            out = attention_train(cfg, q, k, v, spec.window)
+        else:
+            out = sharded_attention(cfg, ctx, functools.partial(
+                attention_train, cfg, window=spec.window), q, k, v)
         x = x + out.reshape(B, S, cfg.n_heads * cfg.dh) @ p["wo"]
-        return _ffn_part(cfg, p, x)
+        return _ffn_part(cfg, p, x, ctx)
     if spec.kind == "mlstm":
-        return rec.mlstm_block(cfg, p, x, train=True)[0]
+        return rec.mlstm_block(cfg, p, x, train=True, ctx=ctx)[0]
     if spec.kind == "slstm":
         return rec.slstm_block(cfg, p, x)[0]
     if spec.kind == "rglru":
-        x = rec.rglru_block(cfg, p, x, train=True)[0]
-        return _ffn_part(cfg, p, x) if spec.has_ffn else x
+        x = rec.rglru_block(cfg, p, x, train=True, ctx=ctx)[0]
+        return _ffn_part(cfg, p, x, ctx) if spec.has_ffn else x
     raise ValueError(spec.kind)
 
 
@@ -235,7 +339,8 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def apply_groups_train(model: Transformer, x: torch.Tensor,
-                       positions: torch.Tensor) -> torch.Tensor:
+                       positions: torch.Tensor,
+                       ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Every layer in order, one repetition of a group's pattern at a time
     under ``_remat`` (JAX's granularity).  Each stacked leaf is unbound
     once, so that its gradient is assembled by one stack and not by a
@@ -248,7 +353,7 @@ def apply_groups_train(model: Transformer, x: torch.Tensor,
 
         def body(xc, layer_params, pattern=pattern):
             for spec, p in zip(pattern, layer_params):
-                xc = apply_layer_train(cfg, spec, p, xc, positions)
+                xc = apply_layer_train(cfg, spec, p, xc, positions, ctx)
             return xc
 
         body = _remat(cfg, body)
@@ -258,23 +363,55 @@ def apply_groups_train(model: Transformer, x: torch.Tensor,
     return x
 
 
-def forward_train(model: Transformer, inputs: torch.Tensor) -> torch.Tensor:
+def forward_train(model: Transformer, inputs: torch.Tensor,
+                  ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """inputs: (B, S) integer tokens or (B, S, D) frontend embeddings ->
     (B, S, V) logits."""
     B, S = inputs.shape[:2]
-    x = embed(model, inputs)
+    x = embed(model, inputs, ctx)
     positions = torch.arange(S, device=inputs.device).expand(B, S)
-    return logits_fn(model, apply_groups_train(model, x, positions))
+    return logits_fn(model, apply_groups_train(model, x, positions, ctx), ctx)
 
 
-def lm_loss(model: Transformer, inputs: torch.Tensor,
-            targets: torch.Tensor) -> torch.Tensor:
+def lm_loss(model: Transformer, inputs: torch.Tensor, targets: torch.Tensor,
+            ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Mean next-token cross-entropy, the JAX package's fused stable form:
     the max is taken without gradient and subtracted in the logits' dtype,
-    then the rest runs in fp32."""
-    logits = forward_train(model, inputs)
-    lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
-    shifted = (logits - lmax).float()
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    tgt = torch.gather(shifted, -1, targets[..., None].long())[..., 0]
-    return torch.mean(lse - tgt)
+    then the rest runs in fp32.  With a context the loss is a replicated
+    DTensor, and its backward must run under ``sharding.mesh_mode(ctx)``
+    (``runtime.steps`` does so)."""
+    with sharding.mesh_mode(ctx):
+        logits = forward_train(model, inputs, ctx)
+        if ctx is not None:
+            targets = _constrain(targets, ctx, (ctx.dp_axes,))
+        lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
+        shifted = (logits - lmax).float()
+        lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+        if ctx is None:
+            tgt = torch.gather(shifted, -1, targets[..., None].long())[..., 0]
+        else:
+            tgt = _target_logits(shifted, targets, ctx)
+        return torch.mean(lse - tgt)
+
+
+def _target_logits(shifted: torch.Tensor, targets: torch.Tensor,
+                   ctx: ShardCtx) -> torch.Tensor:
+    """``shifted[b, s, targets[b, s]]`` with the vocab cut over "model":
+    each rank reads the targets it holds, zeros the rest, and the ranks'
+    values are summed over "model"."""
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    spec = sharding._divisible((ctx.dp_axes, None, tp), tuple(shifted.shape),
+                               mesh)
+    cut = spec[2] is not None
+    group = mesh.get_group(tp)
+
+    def local(sh, tg):
+        n = sh.shape[-1]
+        idx = tg.long() - mesh.get_local_rank(tp) * n if cut else tg.long()
+        mine = (idx >= 0) & (idx < n)
+        got = torch.gather(sh, -1, torch.where(mine, idx, 0)[..., None])
+        got = torch.where(mine, got[..., 0], 0.0)
+        return comm.psum(got, group, "target") if cut else got
+
+    return sharding.on_shards(local, mesh, (spec, spec[:2]), spec[:2])(
+        shifted, targets)

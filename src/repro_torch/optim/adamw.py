@@ -15,6 +15,12 @@ weights into the parameters, the new moments and master into the state's
 tensors.  It walks each leaf in slices of ``SLICE`` elements, so the fp32
 temporaries stay small beside a 622 M-element embedding; every operation
 is elementwise, so slicing changes no bit.
+
+Sharded parameters (DTensors) are updated on their local shards, with the
+gradients laid out as the parameters: the update is elementwise, so it
+gives the unsharded bits.  What reaches across shards is reduced over the
+mesh: the clip's sum of squares (each distinct shard counted once, then
+summed over ranks) and int8 compression's row max where the row is cut.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel import comm, sharding
 
 #: elements of a leaf updated at a time
 SLICE = 1 << 26
@@ -57,11 +66,19 @@ def adamw_init(params: Iterable[torch.Tensor], cfg: AdamWConfig) -> State:
     }
 
 
-def _compress_int8(g: torch.Tensor) -> torch.Tensor:
-    """Blockwise int8 quantize→dequantize (simulates int8 all-reduce)."""
-    if g.ndim == 0 or g.numel() < 256:
+def _compress_int8(g: torch.Tensor, numel: Optional[int] = None,
+                   row_groups: Sequence = ()) -> torch.Tensor:
+    """Blockwise int8 quantize→dequantize (simulates int8 all-reduce).  For
+    a local shard: ``numel`` is the whole tensor's, and ``row_groups`` the
+    process groups of the mesh dimensions that cut its last axis, over
+    which the row max is taken."""
+    if g.ndim == 0 or (g.numel() if numel is None else numel) < 256:
         return g
-    scale = torch.amax(torch.abs(g), dim=-1, keepdim=True) / 127.0 + 1e-12
+    amax = torch.amax(torch.abs(g), dim=-1, keepdim=True)
+    if row_groups:
+        comm.all_reduce(amax, row_groups, "amax",
+                        op=torch.distributed.ReduceOp.MAX)
+    scale = amax / 127.0 + 1e-12
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q.to(g.dtype) * scale
 
@@ -88,12 +105,36 @@ def adamw_update(params: Sequence[torch.Tensor],
     moments and master into ``state``'s tensors; returns the state with the
     count advanced."""
     count = state["count"] + 1
-    if cfg.compress == "int8":
+    kept = {k: state[k] for k in ("mu", "nu", "master")}
+    mesh, layouts = None, None
+    if isinstance(params[0], DTensor):
+        mesh = params[0].device_mesh
+        layouts = [(p.numel(), p.placements) for p in params]
+        grads = [g.redistribute(mesh, p.placements).to_local()
+                 for p, g in zip(params, grads)]
+        params = [p.to_local() for p in params]
+        state = dict(state, **{k: [t.to_local() for t in state[k]]
+                               for k in ("mu", "nu", "master")})
+    if cfg.compress == "int8" and mesh is None:
         grads = [_compress_int8(g) for g in grads]
+    elif cfg.compress == "int8":
+        grads = [_compress_int8(g, n, [mesh.get_group(i) for i, pl in
+                                       enumerate(pls)
+                                       if pl.is_shard(g.ndim - 1)])
+                 for g, (n, pls) in zip(grads, layouts)]
     scale = None
-    if cfg.grad_clip > 0:   # global-norm clip (fp32), summed in leaf order
+    if cfg.grad_clip > 0 and mesh is None:
+        # global-norm clip (fp32), summed in leaf order
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                for g in grads))
+    elif cfg.grad_clip > 0:
+        # each distinct shard once, in leaf order, then over the mesh
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        total = sum(s if sharding.owns_shard(mesh, pls) else torch.zeros_like(s)
+                    for s, (_, pls) in zip(sq, layouts))
+        gnorm = torch.sqrt(comm.all_reduce(total, sharding.mesh_groups(mesh),
+                                           "clip"))
+    if cfg.grad_clip > 0:
         scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
                             / (gnorm + 1e-12), max=1.0)
 
@@ -122,5 +163,4 @@ def adamw_update(params: Sequence[torch.Tensor],
         p, mu, nu, master = (t.view(-1) for t in (p, mu, nu, master))
         for sl in _slices(g.numel()):
             upd(p[sl], g[sl], mu[sl], nu[sl], master[sl])
-    return {"mu": state["mu"], "nu": state["nu"], "master": state["master"],
-            "count": count}
+    return dict(kept, count=count)

@@ -1,0 +1,324 @@
+"""Sharding rules, ported from ``repro.parallel.sharding``: parameter, batch
+and cache specs per mesh, and their placement as DTensors.
+
+Axes:
+  pod    — data parallelism across pods (multi-pod mesh only)
+  data   — data parallelism + FSDP (params' non-model dim sharded here)
+  model  — tensor parallelism: heads / FFN / experts / vocab; also the
+           sequence axis of decode KV caches (flash-decode style)
+
+A spec is JAX's ``PartitionSpec`` as a plain tuple, one entry per tensor
+dimension: ``None`` (not sharded), an axis name, or a tuple of axis names
+(the dimension split over several axes, the first the major one).  The
+rules are name-based over the parameter tree and read a leaf's path as the
+reference reads its pytree path (``Transformer.leaf_items``): the leaf's
+own key, and whether it sits in ``groups``, whose stacked leaves get a
+leading ``None``.  A mesh here is anything with ``mesh_dim_names`` and
+``shape`` (a ``DeviceMesh``); the rules read nothing else.
+
+``placements`` turns a spec into DTensor placements, one per mesh
+dimension; ``distribute_tree`` (the reference's ``named`` plus its
+``device_put``) places a model, a list of leaves or a nest of caches.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch.models.common import ModelConfig, Transformer
+
+FSDP = "data"
+TP = "model"
+
+Spec = Tuple[Any, ...]
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def shard_ctx_for_mesh(mesh):
+    from repro_torch.models.transformer import ShardCtx
+    return ShardCtx(mesh=mesh, dp_axes=dp_axes(mesh), tp_axis=TP)
+
+
+def _rule_for(name: str, shape: Tuple[int, ...], cfg: Optional[ModelConfig],
+              stacked: bool) -> Spec:
+    """Spec for one parameter by name (``shape`` includes the stacked
+    axis when ``stacked``)."""
+    r = len(shape) - (1 if stacked else 0)
+    base: Tuple = ()
+    if name == "embed":
+        base = (TP, FSDP)
+    elif name == "lm_head":
+        base = (FSDP, TP)
+    elif name in ("wq", "wk", "wv", "up", "w_in", "wz", "wi", "wf",
+                  "wo_gate"):
+        base = (FSDP, TP) if r == 2 else (None,)
+    elif name in ("wo", "down"):
+        base = (TP, FSDP)
+    elif name in ("w_gate", "w_up"):
+        base = (TP, FSDP, None) if r == 3 else (FSDP, TP)   # moe vs dense
+    elif name == "w_down":
+        base = (TP, None, FSDP) if r == 3 else (TP, FSDP)
+    elif name == "router":
+        base = (FSDP, None)
+    elif name in ("wa", "wx", "w_out"):
+        base = (TP, FSDP)
+    elif name == "conv":
+        base = (None, TP)
+    elif name == "lam":
+        base = (TP,)
+    else:   # ln*, norms, biases, rz, bf — replicate
+        base = tuple(None for _ in range(r))
+    base = tuple(base[:r]) + tuple(None for _ in range(r - len(base)))
+    if stacked:
+        base = (None,) + base
+    return base
+
+
+def _divisible(spec: Spec, shape: Tuple[int, ...], mesh) -> Spec:
+    """Drop sharding on axes the shape does not divide evenly (tiny smoke
+    configs; odd head counts)."""
+    sizes = axis_sizes(mesh)
+    fixed = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if ax is None:
+            fixed.append(None)
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        n = math.prod(sizes[a] for a in axes)
+        fixed.append(ax if dim % n == 0 else None)
+    return tuple(fixed)
+
+
+def weight_compute_spec(name: str, shape: Tuple[int, ...], mesh) -> Spec:
+    """Compute-time spec for a weight: the storage rule with the FSDP axis
+    dropped (ZeRO-3 style per-layer gather: the small weight is gathered
+    over ``data`` instead of the large activations being reduced)."""
+    spec = _rule_for(name, shape, None, stacked=False)
+    fixed = tuple(None if ax == FSDP else ax for ax in spec)
+    return _divisible(fixed, shape, mesh)
+
+
+def param_pspecs(cfg: ModelConfig, model: Transformer, mesh) -> List[Spec]:
+    """Specs of ``model``'s parameters in ``leaf_items`` order."""
+    specs = []
+    for path, leaf in model.leaf_items():
+        spec = _rule_for(path[-1], tuple(leaf.shape), cfg,
+                         stacked=path[0] == "groups")
+        specs.append(_divisible(spec, tuple(leaf.shape), mesh))
+    return specs
+
+
+def batch_pspecs(cfg: ModelConfig, mesh) -> Dict[str, Spec]:
+    dp = dp_axes(mesh)
+    return {"inputs": (dp,), "targets": (dp,)}
+
+
+def cache_pspecs(cfg: ModelConfig, caches: Any, mesh,
+                 seq_shard: bool = True) -> Any:
+    """Decode caches, nested as ``caches``: batch over dp; the KV cache's
+    sequence axis over ``model`` (flash-decode / context-parallel decode)
+    when divisible."""
+    dp = dp_axes(mesh)
+
+    def rule(name, shape):
+        # stacked leading reps dim, then batch
+        if name in ("k", "v"):      # (R, B, S, KV, dh)
+            spec = (None, dp, TP if seq_shard else None, None, None)
+        elif name == "pos":         # (R, S)
+            spec = (None, TP if seq_shard else None)
+        elif name == "C":           # (R, B, H, dh, dh)
+            spec = (None, dp, None, None, None)
+        elif name in ("n", "c", "h", "m"):   # (R, B, H, dh) / (R, B, H)
+            spec = (None, dp) + (None,) * (len(shape) - 2)
+        elif name == "y":           # (R, B, W)
+            spec = (None, dp, TP)
+        elif name == "conv":        # (R, B, 3, W)
+            spec = (None, dp, None, TP)
+        else:
+            spec = (None,) * len(shape)
+        return _divisible(spec, shape, mesh)
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v) for v in tree)
+        return rule(name, tuple(tree.shape))
+
+    return walk(caches)
+
+
+# ---------------------------------------------------------------------------
+# Specs as DTensor placements
+# ---------------------------------------------------------------------------
+def placements(spec: Spec, mesh) -> Tuple:
+    """One placement per mesh dimension: ``Shard(d)`` where the spec puts
+    that axis on tensor dimension ``d``, else ``Replicate()``.  A dimension
+    split over several axes is split by them in mesh order, the first the
+    major one, as JAX splits it; so their order in the spec must be the
+    mesh's.  An axis of size 1 gives ``Replicate()``: a cut into one piece
+    is no cut, and DTensor cannot reshape a dimension of size 1 that is
+    marked as cut."""
+    names = tuple(mesh.mesh_dim_names)
+    where = {}
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        order = [names.index(a) for a in axes]
+        if order != sorted(order):
+            raise ValueError(f"spec {spec}: axes {axes} of dimension {d} are "
+                             f"not in mesh order {names}")
+        for a in axes:
+            if a in where:
+                raise ValueError(f"spec {spec} uses axis {a!r} twice")
+            where[a] = d
+    sizes = axis_sizes(mesh)
+    return tuple(Shard(where[a]) if a in where and sizes[a] > 1
+                 else Replicate() for a in names)
+
+
+def place(x: torch.Tensor, mesh, spec: Spec) -> DTensor:
+    """``x`` laid out on ``mesh`` by ``spec``: a DTensor is redistributed;
+    a plain tensor, which every rank holds whole, is cut without
+    communication."""
+    pl = placements(spec, mesh)
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, pl)
+    return distribute_tensor(x, mesh, pl, src_data_rank=None)
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered into the whole tensor on every rank (a
+    collective); a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def distribute_tree(mesh, tree: Any, specs: Any) -> Any:
+    """Place ``tree`` on ``mesh`` by ``specs``: a ``Transformer`` (its
+    parameters replaced in ``leaf_items`` order by DTensor parameters; the
+    model is returned), a list of leaves with a list of specs, or a nest of
+    dicts and tuples (caches) with specs nested alike."""
+    if isinstance(tree, Transformer):
+        for (path, p), spec in zip(list(tree.leaf_items()), specs):
+            tree.set_leaf(path, nn.Parameter(place(p.detach(), mesh, spec),
+                                             requires_grad=p.requires_grad))
+        return tree
+    if isinstance(tree, dict):
+        return {k: distribute_tree(mesh, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(distribute_tree(mesh, v, s)
+                          for v, s in zip(tree, specs))
+    return place(tree, mesh, specs)
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: Tuple[int, ...]
+              ) -> torch.Tensor:
+    """``x`` with dimension ``dim`` split into ``sizes`` (a reshape).  A
+    DTensor whose dimension ``dim`` is cut over more ranks than
+    ``sizes[0]`` divides by is first made whole along it (DTensor cannot
+    split a dimension that way)."""
+    dim %= x.ndim
+    if isinstance(x, DTensor):
+        cut = math.prod(x.device_mesh.size(i) for i, pl in
+                        enumerate(x.placements) if pl.is_shard(dim))
+        if sizes[0] % cut:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if pl.is_shard(dim) else pl
+                for pl in x.placements])
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+@contextlib.contextmanager
+def mesh_mode(ctx) -> Iterator[None]:
+    """The context a sharded forward and its backward run in: plain
+    tensors that meet DTensors (positions, masks, RoPE tables) count as
+    replicated (``implicit_replication``, which this nests: the state on
+    entry is restored on exit).  Without a context, nothing."""
+    if ctx is None:
+        yield
+        return
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+# ---------------------------------------------------------------------------
+# Shards counted once
+# ---------------------------------------------------------------------------
+def owns_shard(mesh, pls: Sequence) -> bool:
+    """True on the one rank of each group of replicas of a local shard
+    laid out by ``pls`` (no ``Partial``): coordinate 0 on every mesh
+    dimension where it is replicated.  A sum over ranks of what such ranks
+    hold counts each shard once."""
+    if any(pl.is_partial() for pl in pls):
+        raise ValueError(f"placements {pls}: reduce a partial tensor first")
+    return all(c == 0 for c, pl in zip(mesh.get_coordinate(), pls)
+               if not pl.is_shard())
+
+
+def mesh_groups(mesh) -> Iterator:
+    """The process group of each mesh dimension: reducing over all of them
+    in turn reduces over the whole mesh."""
+    return (mesh.get_group(i) for i in range(mesh.ndim))
+
+
+def weight_grad(spec: Spec, act_spec: Spec, mesh) -> Tuple:
+    """Placements of the gradient of a weight laid out by ``spec`` that a
+    function on local shards applies to activations laid out by
+    ``act_spec``: partial (a sum still to take) over each mesh dimension
+    that cuts the activations but not the weight."""
+    return tuple(Partial() if a.is_shard() and not w.is_shard() else w
+                 for w, a in zip(placements(spec, mesh),
+                                 placements(act_spec, mesh)))
+
+
+def on_shards(fn, mesh, in_specs: Sequence, out_specs,
+              grad_placements: Optional[Sequence] = None):
+    """``fn`` run on each rank's local shards (``local_map``), as JAX's
+    ``shard_map``: each tensor argument is laid out by its spec of
+    ``in_specs`` (``None`` for an argument that is not a tensor) and handed
+    to ``fn`` as its local shard; ``fn``'s outputs are the local shards of
+    DTensors laid out by ``out_specs`` (one spec, or a list of specs for a
+    tuple of outputs).  ``grad_placements`` give the placements of the
+    inputs' gradients where they differ from the inputs' own (a ``Partial``
+    where ``fn`` sees only part of what an input feeds)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def pl(spec):
+        return None if spec is None else list(placements(spec, mesh))
+
+    # local_map reads a tuple as one placement list per output, a list as
+    # the placements of a single output
+    outs = (tuple(pl(s) for s in out_specs) if isinstance(out_specs, list)
+            else pl(out_specs))
+    ins = tuple(pl(s) for s in in_specs)
+    grads = None if grad_placements is None else tuple(
+        None if g is None else tuple(g) for g in grad_placements)
+
+    def run(*args):
+        args = tuple(place(a, mesh, s) if isinstance(a, torch.Tensor)
+                     and s is not None else a
+                     for a, s in zip(args, in_specs))
+        return local_map(fn, out_placements=outs, in_placements=ins,
+                         in_grad_placements=grads, device_mesh=mesh)(*args)
+
+    return run

@@ -1,8 +1,16 @@
 """Step builders, ported from ``repro.runtime.steps``.
 
-  make_train_step(cfg, opt_cfg)  — fwd + bwd + AdamW + attestation fingerprints
-  make_prefill(cfg)              — prompt ingestion, returns last logits + caches
-  make_serve_step(cfg)           — one decode token against caches/state
+  make_train_step(cfg, opt_cfg, ctx)  — fwd + bwd + AdamW + attestation
+                                        fingerprints
+  make_prefill(cfg, ctx)              — prompt ingestion, returns last
+                                        logits + caches
+  make_serve_step(cfg, ctx)           — one decode token against
+                                        caches/state
+
+``ctx`` is a ``ShardCtx``: with one, the steps take a model placed on its
+mesh (``parallel.sharding``) and run sharded.  ``opt_cfg`` stays the
+train step's second argument, as the port's callers pass it, where the
+reference puts ``ctx``.
 """
 
 from __future__ import annotations
@@ -12,12 +20,15 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.common import ModelConfig, Transformer
-from repro_torch.models.transformer import decode_step, lm_loss, prefill
+from repro_torch.models.transformer import (ShardCtx, decode_step, lm_loss,
+                                            prefill)
 from repro_torch.optim.adamw import AdamWConfig, State, adamw_update
+from repro_torch.parallel.sharding import mesh_mode
 from repro_torch.runtime.attest import fingerprint_tree
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
+def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
+                    ctx: Optional[ShardCtx] = None):
     """``train_step(model, opt_state, batch) -> (opt_state, metrics)``: the
     loss and its gradients (left in each parameter's ``.grad``), one AdamW
     step written into the model and the state, and with ``cfg.attest`` the
@@ -25,7 +36,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
     parameters, both in ``param_leaves()`` order.  ``batch`` holds
     ``inputs``, (B, S) integer tokens or, for a frontend arch, (B, S, D)
     float embeddings, and integer ``targets`` (B, S), on the model's
-    device."""
+    device.  With ``ctx`` the gradients are laid out as their parameters
+    before the update, and the loss is the replicated value."""
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(model: Transformer, opt_state: State,
@@ -37,10 +49,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
         params = list(model.param_leaves())
         model.requires_grad_(True)
         model.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss = lm_loss(model, batch["inputs"], batch["targets"])
+        with torch.enable_grad(), mesh_mode(ctx):
+            loss = lm_loss(model, batch["inputs"], batch["targets"], ctx)
             loss.backward()
         grads = [p.grad for p in params]
+        if ctx is not None:
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for p, g in zip(params, grads)]
+            loss = loss.full_tensor()
         opt_state = adamw_update(params, grads, opt_state, opt_cfg)
         metrics: Dict[str, object] = {"loss": loss.detach()}
         if cfg.attest:
@@ -52,19 +68,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
     return train_step
 
 
-def make_prefill(cfg: ModelConfig, max_seq: Optional[int] = None):
+def make_prefill(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
+                 max_seq: Optional[int] = None):
     """``prefill_step(model, inputs)``: inputs are (B, S) tokens or (B, S,
     D) frontend embeddings."""
 
     def prefill_step(model: Transformer, inputs: torch.Tensor):
-        return prefill(model, inputs, max_seq=max_seq)
+        return prefill(model, inputs, max_seq=max_seq, ctx=ctx)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None):
     def serve_step(model: Transformer, caches, tokens: torch.Tensor,
                    position: int):
-        return decode_step(model, caches, tokens, position)
+        return decode_step(model, caches, tokens, position, ctx=ctx)
 
     return serve_step

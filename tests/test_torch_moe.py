@@ -55,10 +55,9 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)   # through the whole stack in fp32
 FLIP_GAP = 0.025
 MAX_FLIPS = 0.01
 #: reference config fields the port has no use for: the head is always tied
-#: (``tie_embeddings``), and the rest are the JAX package's sequence limit,
-#: logits dtype and multi-device knobs
-NOT_PORTED = {"tie_embeddings", "max_seq", "kv_chunk", "logits_fp32",
-              "fsdp_gather", "attn_head_shard"}
+#: (``tie_embeddings``), and the rest are the JAX package's sequence limit
+#: (it comes with the dry-run tools), logits dtype and KV chunk
+NOT_PORTED = {"tie_embeddings", "max_seq", "kv_chunk", "logits_fp32"}
 
 
 def _np(x):
