@@ -93,22 +93,43 @@
    applied in sequence.  It prints the step and decode times on the mesh
    beside the unsharded ones and the port's explicit collectives by kind,
    and checks that the MoE sum, the digest sum and the pipeline's
-   broadcast ran.
+   broadcast ran;
+12. measures what the costing counts and the card does: (a) the card's
+   profile, a bf16 ``torch.matmul`` at 8192^3 and a 2 GiB device copy, each
+   the median of 5 timed with CUDA events, within 30-105% of the data sheet
+   and printed beside ``serve/costmodel.py``'s constants; (b) four whole
+   calls counted on the card by ``launch.costing.Counter`` (gemma3-1b's
+   prefill of 1168 tokens, recurrentgemma-2b's of 384, xlstm-1.3b's of 300,
+   and phase 8's qwen3-8b train step): the FLOPs, bytes and kernel calls
+   equal the dry-run's count of the same call on fake tensors
+   (``launch.dryrun.trace``), the counter changes no launch and no bit of
+   the output, and each call's time (CUDA events) gives its roofline share
+   and its model-FLOP share; (c) three dry-run cells through the CLI on
+   this torch, started with the script on the host's CPU: qwen3-8b
+   ``train_4k`` on the 16x16 mesh, xlstm-1.3b ``prefill_32k`` (the sLSTM
+   fit, whose check must be exact) and qwen3-moe-235b-a22b ``decode_32k``
+   (expert parallelism) on the 2x16x16 one, each ending ``ok``, with
+   per-device peak GB, TFLOPs and
+   collective GB; the first and the last also traced on fake CPU tensors,
+   as a CPU-only build traces them, must give the same counts.
 
-Any failure raises.  The line before the last is a JSON object of
+Any failure raises.  ``--only 3,12`` runs the build and those phases
+alone and prints no result.  The line before the last is a JSON object of
 per-kernel numbers (a kernel timed at several shapes lists them under
 ``shapes``; its top-level numbers are those of the first).  Each time is
 given two ways, measured in one go (``time_ms``): ``ms``, ``plain_ms`` and
 ``library_ms`` are back-to-back calls, the host's cost of a call included
 wherever it exceeds the device's; ``device_ms``, ``plain_device_ms`` and
 ``library_device_ms`` are the same calls queued behind a spin kernel, the
-device's time alone.  The last line is ``{"ok": true, "device": ...}``.
+device's time alone.  Phase 12's numbers are a JSON line before it.  The
+last line is ``{"ok": true, "device": ...}``.
 Without a GPU, or without the repository's ``src/`` beside it, the script
 exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import gc
@@ -143,14 +164,15 @@ try:
     from repro_torch.configs import get_config  # noqa: E402
     from repro_torch.core import crypto  # noqa: E402
     from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
-    from repro_torch.kernels import cuda, ops, rglru  # noqa: E402
+    from repro_torch.kernels import cuda, ops, rglru, work  # noqa: E402
     from repro_torch.kernels.fingerprint import (fingerprint_cuda,  # noqa: E402
                                                  fingerprint_plain)
     from repro_torch.kernels.mlstm import mlstm_plain  # noqa: E402
     from repro_torch.kernels.rglru import rglru_plain  # noqa: E402
-    from repro_torch.kernels.swa import swa_plain  # noqa: E402
-    from repro_torch.launch import serve  # noqa: E402
+    from repro_torch.kernels.swa import swa_cuda, swa_plain  # noqa: E402
+    from repro_torch.launch import costing, dryrun, serve  # noqa: E402
     from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
+    from repro_torch.launch.shapes import ShapeSpec  # noqa: E402
     from repro_torch.launch.train import train as train_launcher  # noqa: E402
     from repro_torch.models.common import (Transformer,  # noqa: E402
                                            default_blocks, init_params)
@@ -170,11 +192,11 @@ try:
 except ImportError as e:
     sys.exit(f"chip_smoke: the port is not importable from {ROOT / 'src'}: {e}")
 
-# H100 SXM data sheet (dense): HBM rate, bf16 tensor-core rate, and the
-# CUDA cores' fp32 rate, used here for fp32 and integer word operations
-HBM_BYTES_S = 3.35e12
-BF16_FLOPS = 989e12
-CORE_OPS = 67e12
+# H100 SXM data sheet (dense), from the port's work formulas
+# (``kernels.work``): HBM rate, bf16 tensor-core rate, and the CUDA cores'
+# fp32 rate, which fp32 and integer word operations run at
+HBM_BYTES_S, BF16_FLOPS, CORE_OPS = (work.HBM_BYTES_S, work.BF16_FLOPS,
+                                     work.CORE_OPS)
 # input bytes a cold timing rotates over: four times the H100's 50 MB L2
 ROTATE_BYTES = 200_000_000
 # fp16: about four times the largest error read on the card (9.8e-4)
@@ -330,35 +352,22 @@ def phase_fingerprint(full_model: Transformer) -> dict:
     emb = full_model.embed
     t = timed(lambda: fingerprint_cuda(emb), lambda: fingerprint_plain(emb),
               None, iters=20, plain_iters=3)
-    n_bytes = emb.numel() * emb.element_size() + 4
-    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
-    ops_ms = 4 * emb.numel() / CORE_OPS * 1e3    # mul, shift, xor, add a word
+    fp_work = work.fingerprint_work(emb.numel(), emb.element_size())
+    n_bytes = fp_work.bytes
+    bound_ms, bound_by = fp_work.bound()
     print(f"[2] fingerprint: {n_checked} digests bit-exact; gemma3-1b tree "
           f"{tree_gpu:#010x} on card == CPU ({len(leaves)} leaves, "
           f"{tree_gpu_s * 1e3:.2f} ms); attest_batch cuda == numpy")
     print(f"    embed table {tuple(emb.shape)} bf16: kernel {t['ms']:.4f} ms "
           f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.3f} ms, bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms "
-          f"({n_bytes / t['device_ms'] / 1e6:.0f} GB/s)")
+          f"{bound_ms:.4f} ms ({n_bytes / t['device_ms'] / 1e6:.0f} GB/s)")
     shape = dict(shape=f"gemma3-1b embed {tuple(emb.shape)} bf16", **t,
-                 bound_ms=max(bytes_ms, ops_ms),
-                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                 bound_ms=bound_ms, bound_by=bound_by)
     return {"name": "fingerprint", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fingerprint.cu",
             "replaces": "src/repro/kernels/fingerprint.py:25",
             "max_abs_err": 0, **{k: shape[k] for k in TIMES},
             "shapes": [shape]}
-
-
-def swa_bound_ms(S: int, H: int, KV: int, dh: int, w: int, elem: int,
-                 flops_per_s: float):
-    pairs = sum(min(p + 1, w) for p in range(S))     # (query, key) in band
-    flops = 4 * dh * pairs * H                       # QK^T and P.V
-    n_bytes = elem * dh * S * (2 * H + 2 * KV)       # q, out; k, v
-    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
-    ops_ms = flops / flops_per_s * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
 
 
 def _close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -429,17 +438,25 @@ def phase_swa() -> dict:
                   lambda: swa_plain(q, k, v, w),
                   lambda: sdpa(qt, kt, vt, attn_mask=band),
                   iters=50, plain_iters=10)
+        # the launcher called directly, without the wrapper's checks and
+        # the registered operator that the wrapper calls
+        t["direct_ms"], t["direct_device_ms"] = time_ms(
+            lambda: swa_cuda(q, k, v, w), 50)
         lib_err = float((sdpa(qt, kt, vt, attn_mask=band).transpose(1, 2).float()
                          - ops.sliding_window_attention(q, k, v, w).float()
                          ).abs().max())
-        bound_ms, bound_by = swa_bound_ms(S, H, KV, dh, w, 2, BF16_FLOPS)
+        bound_ms, bound_by = work.swa_work(1, S, H, KV, dh, w, 2).bound()
         print(f"[3] swa {arch} (H={H}, KV={KV}, w={w}): kernel == plain at "
               f"every shape; at S={S} bf16, back to back (device): kernel "
               f"{t['ms']:.4f} ({t['device_ms']:.4f}) ms, plain "
               f"{t['plain_ms']:.4f} ({t['plain_device_ms']:.4f}) ms, "
               f"sdpa+banded mask {t['library_ms']:.4f} "
               f"({t['library_device_ms']:.4f}) ms (max diff to kernel "
-              f"{lib_err:.3g}), bound {bound_ms:.4f} ms ({bound_by})")
+              f"{lib_err:.3g}), bound {bound_ms:.4f} ms ({bound_by}); the "
+              f"launcher called directly {t['direct_ms']:.4f} "
+              f"({t['direct_device_ms']:.4f}) ms: back to back the wrapper "
+              f"(its checks and the operator's dispatch) adds "
+              f"{(t['ms'] - t['direct_ms']) * 1e3:.1f} us a call")
         shapes.append(dict(shape=f"{arch}: S {S}, H {H}, KV {KV}, dh {dh}, "
                                  f"w {w}, bf16",
                            **t, bound_ms=bound_ms, bound_by=bound_by))
@@ -447,13 +464,6 @@ def phase_swa() -> dict:
             "source": "src/repro_torch/kernels/csrc/swa.cu",
             "replaces": "src/repro/kernels/swa.py:27", "max_abs_err": worst,
             **{k: shapes[0][k] for k in TIMES}, "shapes": shapes}
-
-
-def rglru_bound_ms(B: int, S: int, W: int):
-    bytes_ms = 3 * B * S * W * 4 / HBM_BYTES_S * 1e3     # a, x in; y out
-    ops_ms = 2 * B * S * W / CORE_OPS * 1e3              # fp32 mul and add
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
 
 
 def phase_rglru() -> dict:
@@ -515,7 +525,7 @@ def phase_rglru() -> dict:
             lambda: torch.add(a, x, out=y), 100)
         t["add_cold_ms"], t["add_cold_device_ms"] = time_ms(
             lambda: torch.add(*next(rotate), out=y), 100)
-        bound_ms, bound_by = rglru_bound_ms(B, S, W)
+        bound_ms, bound_by = work.rglru_work(B, S, W).bound()
         blocks = B * -(-W // lanes)
         print(f"[4] rglru at B={B} S={S} W={W} fp32, back to back (device): "
               f"kernel {t['ms']:.4f} ({t['device_ms']:.4f}) ms warm, "
@@ -550,19 +560,6 @@ def _mlstm_inputs(S: int, dtype: torch.dtype, gen: torch.Generator):
     it = torch.randn(1, S, H, device="cuda", generator=gen)
     ft = torch.randn(1, S, H, device="cuda", generator=gen) + 2.0
     return q, k, v, it, ft
-
-
-def mlstm_bound_ms(S: int, H: int, dh: int, c: int, elem: int):
-    """Per chunk and plane: q.k^T and W.V over the c(c+1)/2 causal pairs,
-    q.C and the C update over c x dh x dh, two flops a multiply-add; bytes
-    of q, k, v and h in ``elem`` bytes, the fp32 gates, C, n and m."""
-    pairs = c * (c + 1) // 2
-    flops = (S // c) * H * (4 * pairs * dh + 4 * c * dh * dh)
-    n_bytes = 4 * S * H * dh * elem + 2 * S * H * 4 + H * (dh * dh + dh + 1) * 4
-    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
 
 
 def phase_mlstm() -> dict:
@@ -612,7 +609,7 @@ def phase_mlstm() -> dict:
         t = timed(lambda: ops.mlstm_chunkwise_state(q, k, v, it, ft, chunk),
                   lambda: mlstm_plain(q, k, v, it, ft, chunk), None,
                   iters=50, plain_iters=10)
-        bound_ms, bound_by = mlstm_bound_ms(S, 4, 512, chunk, 2)
+        bound_ms, bound_by = work.mlstm_work(1, S, 4, 512, chunk, 2).bound()
         # blocks: (plane, 64 rows, 128 columns of C); (plane, chunk, 64
         # query rows, 128 value columns)
         state_blocks = 4 * (512 // 64) * (512 // 128)
@@ -1299,10 +1296,9 @@ def check_large_leaf(card_line: str, fp_row: dict):
         t = timed(lambda: fingerprint_cuda(leaf),
                   lambda: fingerprint_plain(leaf), None, iters=10,
                   plain_iters=1)
-        n_bytes = n * leaf.element_size() + 4
-        bytes_ms = n_bytes / HBM_BYTES_S * 1e3
-        ops_ms = 4 * n / CORE_OPS * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
+        fp_work = work.fingerprint_work(n, leaf.element_size())
+        n_bytes = fp_work.bytes
+        bound_ms, bound_by = fp_work.bound()
         print(f"    fingerprint of qwen3-moe's stacked leaf "
               f"{tuple(leaf.shape)} bf16 ({n / 2 ** 32:.2f} x 2^32 words): "
               f"kernel == plain ({got:#010x}); kernel {t['ms']:.3f} ms "
@@ -1312,8 +1308,7 @@ def check_large_leaf(card_line: str, fp_row: dict):
               f"[{card_line}]")
         fp_row["shapes"].append(dict(
             shape=f"qwen3-moe stacked experts {tuple(leaf.shape)} bf16",
-            **t, bound_ms=bound_ms,
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+            **t, bound_ms=bound_ms, bound_by=bound_by))
     return check_fn
 
 
@@ -1674,6 +1669,286 @@ def phase_mesh(card_line: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the card's profile, counted work on the card, the dry-run
+# ---------------------------------------------------------------------------
+#: the dry-run cells phase 12c runs through the CLI: (arch, shape, mesh,
+#: device): one train cell, the sLSTM fit, expert parallelism, and the
+#: first and last again on fake CPU tensors, as a CPU-only build traces
+#: them
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", "single", "cuda"),
+                ("xlstm-1.3b", "prefill_32k", "multi", "cuda"),
+                ("qwen3-moe-235b-a22b", "decode_32k", "multi", "cuda"),
+                ("qwen3-8b", "train_4k", "single", "cpu"),
+                ("qwen3-moe-235b-a22b", "decode_32k", "multi", "cpu"))
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_OUT = ROOT / "artifacts" / "dryrun_torch_chip"
+#: processes this script started, stopped on the way out
+_CHILDREN: list = []
+
+
+def start_dryruns() -> dict:
+    """Phase 12c's cells, each a CLI process started at once on the host's
+    CPU (a dry-run does no device work) at a lower priority, so that they
+    trace while the card runs the other phases."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started = {}
+    for arch, shape, mesh, device in DRYRUN_CELLS:
+        out = DRYRUN_OUT / device
+        out.mkdir(parents=True, exist_ok=True)
+        log = open(out / f"{arch}__{shape}__{mesh}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--device", device,
+             "--out", str(out)], env=env, cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10))
+        _CHILDREN.append(proc)
+        started[arch, shape, mesh, device] = (proc, time.perf_counter())
+    return started
+
+
+def finish_dryruns(card_line: str, started: dict) -> list:
+    """Phase 12c: wait for the dry-run cells; each must end ``ok``."""
+    from repro_torch.launch.dryrun import MESHES
+    rows, records = [], {}
+    for (arch, shape, mesh, device), (proc, t0) in started.items():
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            rc = proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = "timeout"
+        name = MESHES[mesh == "multi"][0]
+        log = DRYRUN_OUT / device / f"{arch}__{shape}__{mesh}.log"
+        check(rc == 0, f"dry-run {arch} {shape} {mesh} {device}: exit {rc}; "
+                       f"{log.read_text()[-3000:]}")
+        rec = json.loads((DRYRUN_OUT / device / f"{arch}__{shape}__{name}"
+                          f".json").read_text())
+        check(rec["status"] == "ok", f"dry-run {arch} {shape} {mesh}: {rec}")
+        if arch == "xlstm-1.3b":
+            # the cell is there for the fit: its premise must hold exactly
+            check("fit_seq" in rec["corrected"]
+                  and not any(rec["fit_check"]["deviation"].values()),
+                  f"dry-run {arch} {shape} {mesh}: the fit is not exact: "
+                  f"{rec.get('fit_check')}; {rec['reason']}")
+        records[arch, shape, mesh, device] = rec
+        c, mem = rec["corrected"], rec["memory"]
+        row = {"arch": arch, "shape": shape, "mesh": name, "device": device,
+               "peak_gb": mem["total_hbm_bytes"] / 1e9,
+               "argument_gb": mem["argument_size_in_bytes"] / 1e9,
+               "tflops": c["flops"] / 1e12, "bytes_gb": c["bytes"] / 1e9,
+               "collective_gb": c["collectives"]["total"] / 1e9,
+               "trace_s": rec["trace_s"],
+               "wall_s": time.perf_counter() - t0,
+               "fit_check": rec.get("fit_check")}
+        rows.append(row)
+        print(f"[12c] dry-run {arch} {shape} {name} (torch "
+              f"{torch.__version__}, fake {device} tensors, rank 0 of "
+              f"{512 if mesh == 'multi' else 256}): ok; per device "
+              f"{row['peak_gb']:.2f} GB peak ({row['argument_gb']:.2f} GB "
+              f"arguments), {row['tflops']:.2f} TFLOPs, "
+              f"{row['bytes_gb']:.1f} GB moved, {row['collective_gb']:.3f} GB "
+              f"of collectives; traced in {row['trace_s']} s "
+              f"({row['wall_s']:.0f} s in all)"
+              + (f"; the fit's check at {row['fit_check']['seq']} tokens, "
+                 f"deviation {row['fit_check']['deviation']}"
+                 if row["fit_check"] else "")
+              + f" [{card_line}]")
+    same = {}
+    for (arch, shape, mesh, device), cpu_rec in records.items():
+        if device != "cpu":
+            continue
+        cuda_rec = records[arch, shape, mesh, "cuda"]
+        eq = {k: cuda_rec["corrected"][k] == cpu_rec["corrected"][k]
+              for k in ("flops", "bytes", "collectives", "kernels")}
+        eq["memory"] = cuda_rec["memory"] == cpu_rec["memory"]
+        same[f"{arch} {shape} {mesh}"] = eq
+        check(all(eq.values()), f"dry-run {arch} {shape} {mesh}: fake CUDA "
+                                f"and fake CPU traces differ: {eq}")
+        print(f"[12c] {arch} {shape} {mesh} traced on fake cuda and on fake "
+              f"cpu tensors: every count equal [{card_line}]")
+    return {"cells": rows, "cuda_equals_cpu": same}
+
+
+def _median_ms(fn, n: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(n):
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_profile(card_line: str) -> dict:
+    """Phase 12a: the card's bf16 matrix rate and its memory rate, each the
+    median of 5 calls timed with CUDA events, held within 30–105% of the
+    data sheet and printed beside the serving cost model's constants."""
+    from repro_torch.serve import costmodel
+    n = 8192
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    a, b = (torch.randn(n, n, device="cuda", generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+    for _ in range(3):
+        torch.matmul(a, b)
+    mm_ms = _median_ms(lambda: torch.matmul(a, b), 5)
+    flops_s = 2 * n ** 3 / (mm_ms / 1e3)
+    del a, b
+    src = torch.empty(2 ** 31, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    for _ in range(2):
+        dst.copy_(src)
+    copy_ms = _median_ms(lambda: dst.copy_(src), 5)
+    bytes_s = 2 * src.numel() / (copy_ms / 1e3)      # read and written
+    del src, dst
+    torch.cuda.empty_cache()
+    print(f"[12a] bf16 matmul {n}^3: {mm_ms:.3f} ms, {flops_s / 1e12:.1f} "
+          f"TFLOP/s ({flops_s / BF16_FLOPS:.0%} of the data sheet's "
+          f"{BF16_FLOPS / 1e12:.0f}); copy of 2 GiB: {copy_ms:.3f} ms, "
+          f"{bytes_s / 1e12:.3f} TB/s read plus written "
+          f"({bytes_s / HBM_BYTES_S:.0%} of {HBM_BYTES_S / 1e12:.2f}); "
+          f"serve/costmodel.py: PEAK_FLOPS {costmodel.PEAK_FLOPS / 1e12:.1f} "
+          f"TFLOP/s, HBM_BW {costmodel.HBM_BW / 1e12:.3f} TB/s "
+          f"[{card_line}]")
+    check(0.30 <= flops_s / BF16_FLOPS <= 1.05,
+          f"matmul rate {flops_s:.3g} FLOP/s outside 30-105% of the sheet")
+    check(0.30 <= bytes_s / HBM_BYTES_S <= 1.05,
+          f"copy rate {bytes_s:.3g} B/s outside 30-105% of the sheet")
+    return {"matmul_ms": mm_ms, "flops_s": flops_s, "copy_ms": copy_ms,
+            "bytes_s": bytes_s, "costmodel_peak_flops": costmodel.PEAK_FLOPS,
+            "costmodel_hbm_bw": costmodel.HBM_BW}
+
+
+def _counted(tag: str, card_line: str, run, traced, n_params: float,
+             tokens: int, model_flops_per: int, devices=("cuda",)) -> dict:
+    """One call counted on the card against the dry-run's count of the same
+    call on fake tensors; ``run(counter)`` makes the call (under the
+    counter where one is given) and returns its outputs."""
+    ops.reset_launches()
+    plain_out = run(None)
+    torch.cuda.synchronize()
+    plain_launches = dict(ops.launches)
+    ops.reset_launches()
+    counter = costing.Counter()
+    counted_out = run(counter)
+    torch.cuda.synchronize()
+    check(dict(ops.launches) == plain_launches,
+          f"{tag}: launches {ops.launches} under the counter, "
+          f"{plain_launches} without")
+    check(_same_tree(plain_out, counted_out),
+          f"{tag}: the counter changed the output's bits")
+    for device in devices:
+        t = traced(device)
+        got = (counter.flops, counter.bytes, counter.kernels)
+        want = (t["flops"], t["bytes"], t["kernels"])
+        check(got == want, f"{tag}: the card counts {got}, the dry-run on "
+                           f"fake {device} tensors {want}")
+    device_ms = _median_ms(lambda: run(None), 3)
+    flops_ms = counter.flops / BF16_FLOPS * 1e3
+    bytes_ms = counter.bytes / HBM_BYTES_S * 1e3
+    bound_ms = max(flops_ms, bytes_ms)
+    mfu = model_flops_per * n_params * tokens / BF16_FLOPS / (device_ms / 1e3)
+    row = {"call": tag, "flops": counter.flops, "bytes": counter.bytes,
+           "kernels": dict(counter.kernels), "launches": plain_launches,
+           "ms": device_ms, "bound_ms": bound_ms,
+           "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+           "roofline_share": bound_ms / device_ms, "model_flop_share": mfu,
+           "peak_live_gb": counter.peak_bytes / 1e9}
+    print(f"[12b] {tag}: counted on the card == the dry-run on fake "
+          f"{' and '.join(devices)} tensors: {counter.flops / 1e12:.4f} "
+          f"TFLOPs, {counter.bytes / 1e9:.3f} GB, kernel calls "
+          f"{dict(counter.kernels)}; launches and output bits unchanged "
+          f"under the counter; {device_ms:.2f} ms (CUDA events, median of "
+          f"3): roofline share {row['roofline_share']:.1%} (bound "
+          f"{bound_ms:.3f} ms by {row['bound_by']}), model-FLOP share "
+          f"{mfu:.1%} ({model_flops_per}·N·T, N {n_params / 1e9:.3f} B, T "
+          f"{tokens}) [{card_line}]")
+    return row
+
+
+def count_prefill(card_line: str, arch: str, S: int, devices) -> dict:
+    cfg = get_config(arch)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    rng = np.random.default_rng(12)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, S))
+                              ).to(device="cuda", dtype=torch.int32)
+    step = make_prefill(cfg, None, max_seq=S)
+
+    def run(counter):
+        with counter or contextlib.nullcontext():
+            return step(model, tokens)
+
+    n_params = sum(p.numel() for p in model.param_leaves())
+    row = _counted(f"{arch} prefill of {S} tokens", card_line, run,
+                   lambda device: dryrun.trace(
+                       cfg, ShapeSpec("p", "prefill", S, 1), None, device),
+                   n_params, S, 2, devices)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def count_train_step(card_line: str) -> dict:
+    """qwen3-8b as phase 8 (4 of 36 layers, 2 x 1024 tokens, remat
+    "full"): two replicas from seed 0, one step each, one under the
+    counter; their losses, digests and new parameters must be equal."""
+    full = get_config("qwen3-8b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS,
+                              blocks=default_blocks(TRAIN_LAYERS))
+    opt_cfg = AdamWConfig()
+    models = [init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda") for _ in range(2)]
+    opts = [adamw_init(m.param_leaves(), opt_cfg) for m in models]
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0))
+    batch = {k: torch.from_numpy(v).to(device="cuda", dtype=torch.int32)
+             for k, v in pipe.global_batch(0).items()}
+    step = make_train_step(cfg, opt_cfg)
+    calls = iter(range(2))
+
+    def run(counter):
+        i = next(calls, 0)
+        with counter or contextlib.nullcontext():
+            opts[i], m = step(models[i], opts[i], batch)
+        return [m["loss"], torch.tensor([m["grad_fp"], m["param_fp"]]),
+                *models[i].param_leaves()]
+
+    n_params = sum(p.numel() for p in models[0].param_leaves())
+    row = _counted(f"qwen3-8b train step ({TRAIN_LAYERS} of "
+                   f"{full.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ} "
+                   f"tokens, remat {cfg.remat})", card_line, run,
+                   lambda device: dryrun.trace(
+                       cfg, ShapeSpec("t", "train", TRAIN_SEQ, TRAIN_BATCH),
+                       None, device),
+                   n_params, TRAIN_BATCH * TRAIN_SEQ, 6, ("cuda", "cpu"))
+    del models, opts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_costing(card_line: str, started: dict) -> dict:
+    """Phase 12: the card's profile (12a), whole calls counted on the card
+    against the dry-run and timed (12b), the dry-run's CLI on this torch
+    (12c, started with the script)."""
+    t_phase = time.perf_counter()
+    serve.set_deterministic()
+    profile = phase_profile(card_line)
+    calls = [count_prefill(card_line, "gemma3-1b", 1168, ("cuda", "cpu")),
+             count_prefill(card_line, "recurrentgemma-2b", 384, ("cuda",)),
+             count_prefill(card_line, "xlstm-1.3b", 300, ("cuda",)),
+             count_train_step(card_line)]
+    cells = finish_dryruns(card_line, started)
+    print(f"[12] phase 12 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card_line}]")
+    return {"profile": profile, "calls": calls, "dryrun": cells}
+
+
 def file_digest(path: Path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -1682,7 +1957,12 @@ def file_digest(path: Path) -> str:
     return h.hexdigest()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run (3, 12), after the "
+                         "build; a partial run prints no result")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1695,6 +1975,28 @@ def main() -> int:
     print(card_line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
+    try:
+        if args.only:
+            return run_only(card_line, args.only.split(","))
+        return run_all(card_line, t_start)
+    finally:
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_only(card_line: str, phases) -> int:
+    """Some phases alone (for a short run); prints no result."""
+    if "3" in phases:
+        phase_swa()
+    if "12" in phases:
+        phase_costing(card_line, start_dryruns())
+    return 0
+
+
+def run_all(card_line: str, t_start: float) -> int:
+    started = start_dryruns()
     full = init_params(get_config("gemma3-1b"),
                        torch.Generator(device="cuda").manual_seed(0),
                        device="cuda")
@@ -1722,6 +2024,7 @@ def main() -> int:
         launches[name] += n
     check(all(n > 0 for n in launches.values()),
           f"a kernel was never launched on the main paths: {launches}")
+    costs = phase_costing(card_line, started)
     kernels = [dict({k: row[k] for k in ("name", "route", "source", "replaces")},
                     launches=launches[row["name"]],
                     **{k: row[k] for k in ("max_abs_err", *TIMES, "shapes")
@@ -1729,6 +2032,7 @@ def main() -> int:
                for row in rows]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line)
+    print(json.dumps({"phase12": costs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,10 +74,17 @@ def params_from_jax(np_tree: Mapping[str, Any], cfg: ModelConfig,
         dst.copy_(t)
 
     with torch.no_grad():
-        if set(np_tree) != {"embed", "groups", "out_norm"}:
-            raise ValueError(f"expected a tied-head tree, got {sorted(np_tree)}")
+        want = {"embed", "groups", "out_norm"}
+        if model.lm_head is not None:
+            want.add("lm_head")
+        if set(np_tree) != want:
+            raise ValueError(f"expected the keys {sorted(want)} of a "
+                             f"{'tied' if cfg.tie_embeddings else 'untied'}"
+                             f"-head tree, got {sorted(np_tree)}")
         put(model.embed, np_tree["embed"], "embed")
         put(model.out_norm, np_tree["out_norm"], "out_norm")
+        if model.lm_head is not None:
+            put(model.lm_head, np_tree["lm_head"], "lm_head")
         for g, group in enumerate(model.groups):
             for i, pos in enumerate(group):
                 src = np_tree["groups"][g][i]
@@ -116,7 +123,8 @@ def opt_state_from_jax(np_state: Mapping[str, Any], model: Transformer,
 def jax_tree(model: Transformer, leaves: Sequence[Any]) -> Dict[str, Any]:
     """``leaves`` (one per parameter, in ``param_leaves()`` order) nested as
     the JAX package's parameter tree: ``embed``, ``groups`` (a tuple per
-    group of a tuple per pattern position of dicts) and ``out_norm``."""
+    group of a tuple per pattern position of dicts), ``lm_head`` where the
+    head is untied, and ``out_norm``."""
     leaves = list(leaves)
     n = sum(1 for _ in model.param_leaves())
     if len(leaves) != n:
@@ -126,6 +134,8 @@ def jax_tree(model: Transformer, leaves: Sequence[Any]) -> Dict[str, Any]:
     tree["groups"] = tuple(tuple({k: next(it) for k in sorted(pos.keys())}
                                  for pos in group)
                            for group in model.groups)
+    if model.lm_head is not None:
+        tree["lm_head"] = next(it)
     tree["out_norm"] = next(it)
     return tree
 

@@ -19,7 +19,7 @@ def config() -> ModelConfig:
         n_layers=26, d_model=1152, n_heads=4, n_kv_heads=1, head_dim=256,
         d_ff=6912, vocab=262144,
         blocks=(((_L, _L, _L, _L, _L, _G), 4), ((_L,), 2)),
-        rope_theta=1_000_000.0,
+        rope_theta=1_000_000.0, max_seq=131_072,
     )
 
 

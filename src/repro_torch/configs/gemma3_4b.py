@@ -19,7 +19,7 @@ def config() -> ModelConfig:
         n_layers=34, d_model=2560, n_heads=8, n_kv_heads=4, head_dim=256,
         d_ff=10240, vocab=262144,
         blocks=(((_L, _L, _L, _L, _L, _G), 5), ((_L,), 4)),
-        rope_theta=1_000_000.0,
+        rope_theta=1_000_000.0, max_seq=131_072,
     )
 
 

@@ -19,6 +19,7 @@ def config() -> ModelConfig:
         n_layers=26, d_model=2560, n_heads=10, n_kv_heads=1, head_dim=256,
         d_ff=7680, vocab=256000,
         blocks=(((_R, _R, _A), 8), ((_R, _R), 1)),
+        max_seq=1_048_576,
     )
 
 

@@ -19,6 +19,7 @@ def config() -> ModelConfig:
         n_layers=48, d_model=2048, n_heads=4, n_kv_heads=4, head_dim=512,
         d_ff=0, vocab=50304,
         blocks=(((_M, _M, _M, _S), 12),),
+        max_seq=1_048_576,
     )
 
 

@@ -34,6 +34,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def fingerprint_fake(x: torch.Tensor) -> torch.Tensor:
+    """The operator's fake implementation: the dtype check and the (1,)
+    int32 output, without a launch."""
+    if x.dtype not in _WORD_BYTES:
+        raise TypeError(f"the fingerprint kernel takes bf16, f16, f32, int32 "
+                        f"or uint32 words, not {x.dtype}")
+    return x.new_empty((1,), dtype=torch.int32)
+
+
 def fingerprint_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on a CUDA tensor.  Returns a (1,) int32 tensor on
     the device holding the uint32 digest's bits; nothing is synchronised."""

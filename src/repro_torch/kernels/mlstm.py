@@ -43,15 +43,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               it: torch.Tensor, ft: torch.Tensor, chunk: int
-               ) -> Tuple[torch.Tensor, State]:
-    """Launch the kernel on CUDA tensors (one launch for fp32, the state
-    and output passes for bf16; one count either way).  q, k and v are read
-    in place through their strides; h and the state are new tensors."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           it: torch.Tensor, ft: torch.Tensor, chunk: int) -> None:
+    """The checks of shapes, dtypes and strides that the kernel needs."""
     B, S, H, dh = q.shape
-    if not all(x.is_cuda and x.device == q.device for x in (q, k, v, it, ft)):
-        raise ValueError("mlstm_cuda takes CUDA tensors on one device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the mLSTM kernel takes f32 or bf16 q/k/v of one "
                         f"dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
@@ -72,13 +67,36 @@ def mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the mLSTM kernel reads rows with unit head-dim stride")
     if not (it.is_contiguous() and ft.is_contiguous()):
         raise ValueError("the mLSTM kernel reads contiguous gates")
+    if q.dtype == torch.bfloat16 and dh % 8:
+        raise ValueError(f"the bf16 mLSTM kernel takes dh a multiple of "
+                         f"8, not {dh}")
+
+
+def mlstm_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               it: torch.Tensor, ft: torch.Tensor, chunk: int):
+    """The operator's fake implementation: the checks and the outputs'
+    shapes and dtypes (h, C, n, m), without a launch."""
+    _check(q, k, v, it, ft, chunk)
+    B, S, H, dh = q.shape
+    f32 = dict(dtype=torch.float32)
+    return (q.new_empty(q.shape), q.new_empty((B, H, dh, dh), **f32),
+            q.new_empty((B, H, dh), **f32), q.new_empty((B, H), **f32))
+
+
+def mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               it: torch.Tensor, ft: torch.Tensor, chunk: int
+               ) -> Tuple[torch.Tensor, State]:
+    """Launch the kernel on CUDA tensors (one launch for fp32, the state
+    and output passes for bf16; one count either way).  q, k and v are read
+    in place through their strides; h and the state are new tensors."""
+    B, S, H, dh = q.shape
+    if not all(x.is_cuda and x.device == q.device for x in (q, k, v, it, ft)):
+        raise ValueError("mlstm_cuda takes CUDA tensors on one device")
+    _check(q, k, v, it, ft, chunk)
     dev = q.device
     P, nc = B * H, S // chunk
     scratch = (None, None, None)
     if q.dtype == torch.bfloat16:     # the tensor-core passes
-        if dh % 8:
-            raise ValueError(f"the bf16 mLSTM kernel takes dh a multiple of "
-                             f"8, not {dh}")
         cuda.check_aligned("mLSTM", q, k, v)
         # the state entering each chunk, in one allocation: C as a bf16
         # (hi, lo) pair (P, nc, 2, dh, dh), n (P, nc, dh) and m (P, nc) in
@@ -115,22 +133,23 @@ def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 it: torch.Tensor, ft: torch.Tensor, chunk: int
                 ) -> Tuple[torch.Tensor, State]:
     """The kernel's plain PyTorch version, on any device: the chunk body of
-    the JAX package's ``mlstm_train`` for every plane at once, in fp32."""
+    the JAX package's ``mlstm_train`` for every plane at once, in fp32.
+    The inputs are split into chunks once, so that autograd assembles their
+    gradients with one concatenation each, not with a zero-filled copy of
+    a whole input for every chunk."""
     B, S, H, dh = q.shape
     c = chunk
     if S % c:
         raise ValueError(f"S={S} is not a multiple of chunk={c}")
     dev = q.device
-    qf, kf, vf = q.float(), k.float(), v.float()
     C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=dev)
     n = torch.zeros((B, H, dh), dtype=torch.float32, device=dev)
     m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=dev)
     causal = torch.ones((c, c), dtype=torch.bool, device=dev).tril()
     hs = []
-    for c0 in range(0, S, c):
-        qi, ki, vi = (x[:, c0:c0 + c] for x in (qf, kf, vf))  # (B, c, H, dh)
-        iti = it[:, c0:c0 + c].float()                         # (B, c, H)
-        csum = torch.cumsum(F.logsigmoid(ft[:, c0:c0 + c].float()), dim=1)
+    chunks = zip(*(x.float().split(c, dim=1) for x in (q, k, v, it, ft)))
+    for qi, ki, vi, iti, fti in chunks:     # (B, c, H, dh); gates (B, c, H)
+        csum = torch.cumsum(F.logsigmoid(fti), dim=1)
         tot = csum[:, -1]                                      # (B, H)
         # a[b, t, s, h] = csum_t - csum_s + i_s for s <= t
         a = csum[:, :, None, :] - csum[:, None, :, :] + iti[:, None, :, :]

@@ -34,11 +34,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def rglru_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns a new (B, S, W) fp32
-    tensor."""
-    if not (a.is_cuda and x.device == a.device):
-        raise ValueError("rglru_cuda takes CUDA tensors on one device")
+def _check(a: torch.Tensor, x: torch.Tensor) -> None:
+    """The checks of shapes, dtypes and layout that the kernel needs."""
     if a.dtype != torch.float32 or x.dtype != torch.float32:
         raise TypeError(f"the RG-LRU kernel takes fp32 a and x, not "
                         f"{a.dtype}/{x.dtype}")
@@ -46,6 +43,21 @@ def rglru_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bad shapes a{tuple(a.shape)} x{tuple(x.shape)}")
     if not (a.is_contiguous() and x.is_contiguous()):
         raise ValueError("the RG-LRU kernel reads contiguous a and x")
+
+
+def rglru_fake(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The operator's fake implementation: the checks and the output's
+    shape and dtype, without a launch."""
+    _check(a, x)
+    return a.new_empty(a.shape)
+
+
+def rglru_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns a new (B, S, W) fp32
+    tensor."""
+    if not (a.is_cuda and x.device == a.device):
+        raise ValueError("rglru_cuda takes CUDA tensors on one device")
+    _check(a, x)
     B, S, W = a.shape
     lib = _lib()
     y = torch.empty((B, S, W), dtype=torch.float32, device=a.device)

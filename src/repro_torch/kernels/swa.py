@@ -34,14 +34,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: int) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns a new (B, S, H, dh)
-    tensor.  K and V are read in place through their strides."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int) -> None:
+    """The checks of shapes, dtypes and strides that the kernel needs."""
     B, S, H, dh = q.shape
     KV = k.shape[2]
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("swa_cuda takes CUDA tensors on one device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the SWA kernel takes f32, bf16 or f16 q/k/v of one "
                         f"dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
@@ -57,6 +54,26 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if dh % 16:
             raise ValueError(f"the {q.dtype} SWA kernel takes dh a multiple "
                              f"of 16, not {dh}")
+
+
+def swa_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int) -> torch.Tensor:
+    """The operator's fake implementation: the checks and the output's
+    shape and dtype, without a launch."""
+    _check(q, k, v, window)
+    return q.new_empty(q.shape)
+
+
+def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns a new (B, S, H, dh)
+    tensor.  K and V are read in place through their strides."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("swa_cuda takes CUDA tensors on one device")
+    _check(q, k, v, window)
+    if q.dtype != torch.float32:
         cuda.check_aligned("SWA", q, k, v)
     lib = _lib()
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)

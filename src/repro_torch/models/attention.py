@@ -31,7 +31,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import Replicate
-from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.swa import swa_plain as banded_window_attention
@@ -165,8 +164,7 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
     row_pl = [Replicate() if pl.is_shard(1) else pl
               for pl in cache.placements]
     row = new.redistribute(mesh, row_pl).to_local()
-    _, offset = compute_local_shape_and_global_offset(
-        cache.shape, mesh, cache.placements)
+    offset = sharding.global_offset(cache)
     local = cache.to_local()
     i = slot - offset[1]
     if 0 <= i < local.shape[1]:
@@ -175,8 +173,7 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
 
 def _write_pos(pos: torch.Tensor, slot: int, position: int) -> None:
     """pos[slot] = position for a DTensor (S,) cut or not over the mesh."""
-    _, offset = compute_local_shape_and_global_offset(
-        pos.shape, pos.device_mesh, pos.placements)
+    offset = sharding.global_offset(pos)
     local = pos.to_local()
     i = slot - offset[0]
     if 0 <= i < local.shape[0]:

@@ -55,13 +55,19 @@ class ModelConfig:
     rope_fraction: float = 1.0
     qk_norm: bool = False
     norm_eps: float = 1e-6
+    tie_embeddings: bool = True  # False: an untied (d_model, vocab) lm_head
     dtype: str = "bfloat16"
     # modality frontend stub: prefill and training take (B, S, D)
     # precomputed embeddings in place of token ids
     frontend: Optional[str] = None   # None | "audio" | "vlm"
+    # the reference's sequence limit and KV chunk: fields that its model
+    # code does not read, nor does the port's
+    max_seq: int = 131_072
     remat: str = "full"          # "none" | "dots" | "full" (training only)
     q_chunk: int = 512
+    kv_chunk: int = 1024
     mlstm_chunk: int = 256
+    logits_fp32: bool = False    # logits cast to fp32 before the loss
     attest: bool = True          # fingerprint grads/params each step (uBFT)
     # multi-device layout (with a ``ShardCtx`` only; no effect without one)
     fsdp_gather: bool = False    # gather each layer's weights over "data"
@@ -200,9 +206,10 @@ def layer_leaves(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Leaf]:
 
 
 class Transformer(nn.Module):
-    """Parameters of a stack of attention and recurrent layers with a tied
-    head, named as the JAX pytree: ``embed``, ``out_norm`` and
-    ``groups[g][pos][name]`` with a leading ``reps`` axis.  The forward
+    """Parameters of a stack of attention and recurrent layers, named as
+    the JAX pytree: ``embed``, ``out_norm``, ``groups[g][pos][name]`` with a
+    leading ``reps`` axis, and with ``tie_embeddings=False`` an
+    ``lm_head`` (d_model, vocab); a tied head reads ``embed.T``.  The forward
     passes are the plain functions of ``repro_torch.models.transformer``.
     Parameters start frozen, as serving wants them; ``requires_grad_()``
     makes them trainable (the train step of ``runtime.steps`` does).
@@ -221,6 +228,8 @@ class Transformer(nn.Module):
 
         self.embed = param(cfg.vocab, cfg.d_model)
         self.out_norm = param(cfg.d_model)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else param(cfg.d_model, cfg.vocab))
         self.groups = nn.ModuleList(
             nn.ModuleList(
                 nn.ParameterDict({
@@ -232,12 +241,15 @@ class Transformer(nn.Module):
     def leaf_items(self) -> Iterator[Tuple[Tuple, torch.Tensor]]:
         """(path, parameter) in ``jax.tree.leaves`` order of the JAX pytree
         (dict keys sorted at every level), the path as JAX's:
-        ``("embed",)``, ``("groups", g, pos, name)``, ``("out_norm",)``."""
+        ``("embed",)``, ``("groups", g, pos, name)``, ``("lm_head",)`` where
+        the head is untied, ``("out_norm",)``."""
         yield ("embed",), self.embed
         for g, group in enumerate(self.groups):
             for i, pos in enumerate(group):
                 for k in sorted(pos.keys()):
                     yield ("groups", g, i, k), pos[k]
+        if self.lm_head is not None:
+            yield ("lm_head",), self.lm_head
         yield ("out_norm",), self.out_norm
 
     def param_leaves(self) -> Iterator[torch.Tensor]:
@@ -270,6 +282,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         p.copy_(noise.mul_(scale))
 
     draw(model.embed, cfg.d_model ** -0.5)
+    if model.lm_head is not None:         # the reference's key order
+        draw(model.lm_head, cfg.d_model ** -0.5)
     for (pattern, _), group in zip(cfg.blocks, model.groups):
         for spec, pos in zip(pattern, group):
             for name, leaf in layer_leaves(cfg, spec).items():

@@ -23,10 +23,10 @@ Decode forms: single-step state updates that return new state tensors; the
 state replaces the KV cache.
 
 On a mesh (a ``ShardCtx``), the kernels and their plain versions run on
-each rank's local shards: the mLSTM on its batch rows and, where the head
-count divides, its heads; the RG-LRU's causal conv and scan on its batch
-rows and lanes, which ``lam``, ``wa`` and ``wx`` put on "model".  Both are
-exact per head or lane.
+each rank's local shards: the mLSTM and the sLSTM's loop on its batch rows
+and, where the head count divides, its heads; the RG-LRU's causal conv and
+scan on its batch rows and lanes, which ``lam``, ``wa`` and ``wx`` put on
+"model".  All are exact per head or lane.
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def mlstm_train(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
         h, (C, n, m) = chunkwise(q, k, v, it, ft, c)
     else:
         h, C, n, m = _mlstm_on_shards(cfg, ctx, chunkwise, q, k, v, it, ft, c)
-    h = h.reshape(B, S + pad, H * dh)[:, :S]
+    h = sharding.flatten(h, 2)[:, :S]
     return h, {"C": C, "n": n, "m": m}
 
 
@@ -142,7 +142,7 @@ def mlstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     q, k, v, it, ft = _mlstm_gates(cfg, p, h)
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()  # (B, H, dh)
     it, ft = it[:, 0], ft[:, 0]                                  # (B, H)
-    lf = F.logsigmoid(ft)
+    lf = sharding.elementwise(F.logsigmoid, ft)
     m_new = torch.maximum(lf + state["m"], it)
     fd = torch.exp(lf + state["m"] - m_new)[..., None]
     iw = torch.exp(it - m_new)[..., None]
@@ -160,9 +160,9 @@ def mlstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
-def _slstm_cell(p, zt, it, ft, ot, c_prev, h_prev, m_prev):
+def _slstm_cell(rz, zt, it, ft, ot, c_prev, h_prev, m_prev):
     """One step of the sLSTM cell (per-head recurrent z connection)."""
-    zr = torch.einsum("bhd,hde->bhe", h_prev, p["rz"])
+    zr = torch.einsum("bhd,hde->bhe", h_prev, rz)
     z = torch.tanh(zt + zr)
     m_t = torch.maximum(ft + m_prev, it)
     ig = torch.exp(it - m_t)
@@ -184,24 +184,52 @@ def _slstm_inputs(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             heads((hin @ p["wf"]).float()), heads(hin @ p["wo_gate"]))
 
 
-def slstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
-                ) -> Tuple[torch.Tensor, State]:
+def slstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                ctx=None) -> Tuple[torch.Tensor, State]:
     """sLSTM residual block, a loop over time (sequential recurrence).
-    Returns (output, state).  The inputs are unbound over time once, so
-    that autograd assembles their gradients with one stack each, not with
-    a zero-filled copy of the whole input for every step."""
-    B, S, D = x.shape
+    Returns (output, state)."""
     hin = rms_norm(x, p["ln1"], cfg.norm_eps)
-    inputs = [t.unbind(1) for t in _slstm_inputs(cfg, p, hin)]
-    st = slstm_init_state(cfg, B, device=x.device)
-    c, h, m = st["c"], st["h"], st["m"]
-    hs = []
-    for zt, it, ft, ot in zip(*inputs):
-        c, h, m = _slstm_cell(p, zt, it, ft, ot, c, h, m)
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, D) @ p["wo"]
+    z, i, f, o = _slstm_inputs(cfg, p, hin)
+    if ctx is None:
+        hs, c, h, m = _slstm_loop(p["rz"], z, i, f, o)
+    else:
+        hs, c, h, m = _slstm_on_shards(cfg, ctx, p["rz"], z, i, f, o)
+    y = sharding.flatten(hs, 2) @ p["wo"]
     y = y + _gated_mlp(p, hin)
     return x + y, {"c": c, "h": h, "m": m}
+
+
+def _slstm_loop(rz, z, i, f, o):
+    """The sLSTM cell over time from a zero state: z, i, f, o (B, S, H, dh)
+    -> (h of every step (B, S, H, dh), the final c, h and m).  The inputs
+    are unbound over time once, so that autograd assembles their gradients
+    with one stack each, not with a zero-filled copy of the whole input for
+    every step."""
+    B, _, H, dh = z.shape
+    c = torch.zeros(B, H, dh, dtype=torch.float32, device=z.device)
+    m = torch.zeros_like(c)
+    h = torch.zeros(B, H, dh, dtype=z.dtype, device=z.device)
+    hs = []
+    for zt, it, ft, ot in zip(*(t.unbind(1) for t in (z, i, f, o))):
+        c, h, m = _slstm_cell(rz, zt, it, ft, ot, c, h, m)
+        hs.append(h)
+    return torch.stack(hs, dim=1), c, h, m
+
+
+def _slstm_on_shards(cfg: ModelConfig, ctx, rz, z, i, f, o):
+    """``_slstm_loop`` on each rank's batch rows and, where the head count
+    divides, its heads (``rz`` cut alike): every step's operators run on
+    local tensors, in a layout that does not change with the length."""
+    heads = ctx.tp_axis if cfg.n_heads % ctx.tp_size == 0 else None
+    xs = sharding._divisible((ctx.dp_axes, None, heads, None),
+                             tuple(z.shape), ctx.mesh)
+    ss = (xs[0], xs[2], None)
+    rs = (xs[2], None, None)
+    return sharding.on_shards(
+        _slstm_loop, ctx.mesh, (rs, xs, xs, xs, xs), [xs, ss, ss, ss],
+        (sharding.weight_grad(rs, (xs[0], xs[2]), ctx.mesh),) + tuple(
+            sharding.placements(xs, ctx.mesh) for _ in range(4)))(
+        rz, z, i, f, o)
 
 
 def slstm_init_state(cfg: ModelConfig, batch: int, device=None) -> State:
@@ -218,7 +246,7 @@ def slstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     B = x.shape[0]
     hin = rms_norm(x, p["ln1"], cfg.norm_eps)
     zt, it, ft, ot = (a[:, 0] for a in _slstm_inputs(cfg, p, hin))
-    c, h, m = _slstm_cell(p, zt, it, ft, ot, state["c"], state["h"],
+    c, h, m = _slstm_cell(p["rz"], zt, it, ft, ot, state["c"], state["h"],
                           state["m"])
     y = h.reshape(B, 1, cfg.d_model) @ p["wo"]
     y = y + _gated_mlp(p, hin)

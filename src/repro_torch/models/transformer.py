@@ -143,9 +143,14 @@ def embed(model: Transformer, inputs: torch.Tensor,
 
 def logits_fn(model: Transformer, x: torch.Tensor,
               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
-    """Tied head: (B, S, D) -> (B, S, V) logits against ``embed.T``."""
+    """(B, S, D) -> (B, S, V) logits against ``lm_head``, or ``embed.T``
+    where the head is tied; in fp32 with ``cfg.logits_fp32``."""
     x = rms_norm(x, model.out_norm, model.cfg.norm_eps)
-    logits = x @ _table(model, ctx).T
+    head = (_table(model, ctx).T if model.lm_head is None
+            else model.lm_head)
+    logits = x @ head.to(x.dtype)
+    if model.cfg.logits_fp32:
+        logits = logits.float()
     if ctx is not None:
         logits = _constrain(logits, ctx, (ctx.dp_axes, None, ctx.tp_axis))
     return logits
@@ -191,7 +196,7 @@ def _apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p, x, positions,
     if spec.kind == "mlstm":
         return rec.mlstm_block(cfg, p, x, ctx=ctx)
     if spec.kind == "slstm":
-        return rec.slstm_block(cfg, p, x)
+        return rec.slstm_block(cfg, p, x, ctx=ctx)
     if spec.kind == "rglru":
         x, st = rec.rglru_block(cfg, p, x, ctx=ctx)
         if spec.has_ffn:
@@ -293,12 +298,12 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec,
         else:
             out = sharded_attention(cfg, ctx, functools.partial(
                 attention_train, cfg, window=spec.window), q, k, v)
-        x = x + out.reshape(B, S, cfg.n_heads * cfg.dh) @ p["wo"]
+        x = x + sharding.flatten(out, 2) @ p["wo"]
         return _ffn_part(cfg, p, x, ctx)
     if spec.kind == "mlstm":
         return rec.mlstm_block(cfg, p, x, train=True, ctx=ctx)[0]
     if spec.kind == "slstm":
-        return rec.slstm_block(cfg, p, x)[0]
+        return rec.slstm_block(cfg, p, x, ctx=ctx)[0]
     if spec.kind == "rglru":
         x = rec.rglru_block(cfg, p, x, train=True, ctx=ctx)[0]
         return _ffn_part(cfg, p, x, ctx) if spec.has_ffn else x

@@ -31,6 +31,7 @@ from typing import Any, Dict, Iterable, Optional, Sequence
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels.ops import traced
 from repro_torch.parallel import comm, sharding
 
 #: elements of a leaf updated at a time
@@ -87,8 +88,8 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """fp32 square root, correctly rounded as XLA's and CUDA's are.
     torch's vectorised CPU sqrt misses the last bit on some inputs, so on
     the CPU it goes through fp64, whose second rounding is exact for a
-    square root."""
-    if x.is_cuda:
+    square root.  A traced call takes the card's path (``ops.traced``)."""
+    if x.is_cuda or traced(x):
         return torch.sqrt(x)
     return torch.sqrt(x.double()).float()
 

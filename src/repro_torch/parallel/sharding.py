@@ -226,6 +226,35 @@ def distribute_tree(mesh, tree: Any, specs: Any) -> Any:
     return place(tree, mesh, specs)
 
 
+def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` (elementwise) of ``x``; of a DTensor, applied to its local
+    shard once its partial sums are taken.  For ``F.logsigmoid``, which
+    reaches DTensor as ``log_sigmoid_forward`` under a fake mode (a traced
+    step, ``launch.costing``), an operator DTensor has no rule for; a run
+    gives the same bits either way."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    if any(pl.is_partial() for pl in x.placements):
+        x = x.redistribute(x.device_mesh, [Replicate() if pl.is_partial()
+                                           else pl for pl in x.placements])
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def global_offset(x: DTensor) -> Tuple[int, ...]:
+    """The global index of the first element of ``x``'s local shard, in
+    each dimension.  Worked out ``host_side``: DTensor reads the mesh
+    coordinate from a tensor, which a traced step could not read."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    from repro_torch.kernels.ops import host_side
+    with host_side():
+        return tuple(compute_local_shape_and_global_offset(
+            x.shape, x.device_mesh, x.placements)[1])
+
+
 def unflatten(x: torch.Tensor, dim: int, sizes: Tuple[int, ...]
               ) -> torch.Tensor:
     """``x`` with dimension ``dim`` split into ``sizes`` (a reshape).  A
@@ -241,6 +270,32 @@ def unflatten(x: torch.Tensor, dim: int, sizes: Tuple[int, ...]
                 Replicate() if pl.is_shard(dim) else pl
                 for pl in x.placements])
     return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+class _Flatten(torch.autograd.Function):
+    """Dimensions ``dim`` and ``dim + 1`` merged, the gradient split back
+    by ``unflatten``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
+        ctx.dim, ctx.sizes = dim, tuple(x.shape[dim:dim + 2])
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return unflatten(grad, ctx.dim, ctx.sizes), None
+
+
+def flatten(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with dimensions ``dim`` and ``dim + 1`` merged (heads and head
+    dimension into one).  Of a DTensor, the gradient is split back by
+    ``unflatten``, which first makes the merged dimension whole where
+    DTensor cannot split it (fewer heads than the ranks cutting it: the
+    gradient of a product with a row-cut weight is cut that way)."""
+    dim %= x.ndim
+    if isinstance(x, DTensor):
+        return _Flatten.apply(x, dim)
+    return x.flatten(dim, dim + 1)
 
 
 @contextlib.contextmanager

@@ -38,12 +38,14 @@ def _local_digest(x: DTensor) -> int:
     return ops.fingerprint(x.to_local().contiguous())
 
 
-def _sum_over_mesh(mesh, values: List[int]) -> List[int]:
-    device = (torch.device("cuda", torch.cuda.current_device())
-              if mesh.device_type == "cuda" else torch.device("cpu"))
-    t = torch.tensor(values, dtype=torch.int64, device=device)
+def _sum_over_mesh(mesh, values: List[int], like: torch.Tensor) -> List[int]:
+    """``values`` summed over ``mesh`` in an int64 tensor on the device of
+    ``like``'s local shard (fake where it is fake: a traced step traces the
+    all-reduce and reads 0, ``ops.host_ints``)."""
+    t = torch.tensor(values, dtype=torch.int64,
+                     device=like.to_local().device)
     comm.all_reduce(t, sharding.mesh_groups(mesh), "digest")
-    return [int(v) & _M32 for v in t.tolist()]
+    return [v & _M32 for v in ops.host_ints(t)]
 
 
 def fingerprint_array(x: torch.Tensor) -> int:
@@ -51,7 +53,7 @@ def fingerprint_array(x: torch.Tensor) -> int:
     of a DTensor, the digest of the whole tensor (a collective: every rank
     of its mesh calls it)."""
     if isinstance(x, DTensor):
-        return _sum_over_mesh(x.device_mesh, [_local_digest(x)])[0]
+        return _sum_over_mesh(x.device_mesh, [_local_digest(x)], x)[0]
     return ops.fingerprint(x.contiguous())
 
 
@@ -65,9 +67,10 @@ def fingerprint_tree(leaves: Iterable[torch.Tensor]) -> int:
                for x in leaves]
     sharded = [i for i, d in enumerate(digests) if d is None]
     if sharded:
-        mesh = leaves[sharded[0]].device_mesh
-        sums = _sum_over_mesh(mesh, [_local_digest(leaves[i])
-                                     for i in sharded])
+        first = leaves[sharded[0]]
+        sums = _sum_over_mesh(first.device_mesh,
+                              [_local_digest(leaves[i]) for i in sharded],
+                              first)
         for i, d in zip(sharded, sums):
             digests[i] = d
     acc = 0

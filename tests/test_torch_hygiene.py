@@ -13,12 +13,16 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
-#: protocol modules that the port copies verbatim (imports rewritten)
+#: JAX-free modules that the port copies verbatim (imports rewritten): the
+#: protocol, the serving plane, the workload library and the matching
+#: engine whose orders ``workloads/matching.py`` makes
 COPIED = [f"core/{m}.py" for m in (
     "consensus", "smr", "crypto", "ctbcast", "tbcast", "registers", "node",
     "substrate", "health", "membership")] + [
     "sim/events.py", "sim/net.py", "runtime/server.py", "runtime/trainer.py",
-    "data/__init__.py", "data/pipeline.py"]
+    "data/__init__.py", "data/pipeline.py", "serve/__init__.py",
+    "serve/plane.py"] + [f"workloads/{m}.py" for m in (
+    "__init__", "arrivals", "llm", "matching")] + ["apps/matching.py"]
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
 

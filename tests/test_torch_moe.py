@@ -54,10 +54,9 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)   # through the whole stack in fp32
 # limits about twice the gap and four times the share
 FLIP_GAP = 0.025
 MAX_FLIPS = 0.01
-#: reference config fields the port has no use for: the head is always tied
-#: (``tie_embeddings``), and the rest are the JAX package's sequence limit
-#: (it comes with the dry-run tools), logits dtype and KV chunk
-NOT_PORTED = {"tie_embeddings", "max_seq", "kv_chunk", "logits_fp32"}
+#: reference config fields the port lacks: none since the dry-run slice
+#: brought ``tie_embeddings``, ``max_seq``, ``kv_chunk`` and ``logits_fp32``
+NOT_PORTED = set()
 
 
 def _np(x):

@@ -46,7 +46,7 @@ LOSS_ARCHS = ("qwen3-8b", "qwen3-moe-235b-a22b", "recurrentgemma-2b",
               "gemma3-1b", "xlstm-1.3b")
 MOE = "qwen3-moe-235b-a22b"
 TRAIN = [(a, False) for a in LOSS_ARCHS] + [("qwen3-8b", True)]
-SERVE = ("gemma3-1b", "recurrentgemma-2b")
+SERVE = ("gemma3-1b", "recurrentgemma-2b", "xlstm-1.3b")
 B, S = 4, 16
 LOSS_RTOL = 1e-5
 LR = train_parity.LR

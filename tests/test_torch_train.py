@@ -408,12 +408,13 @@ def test_train_path_calls_no_forward_only_kernel(arch, remat, jax_inits,
 def test_forward_only_wrappers_refuse_inputs_that_require_grad(monkeypatch):
     """On CUDA inputs the SWA, RG-LRU and mLSTM wrappers raise before
     launching when autograd would differentiate the call, and launch when
-    it would not (here the device test and the kernels are stand-ins)."""
+    it would not (here the device test and the kernels' operators are
+    stand-ins)."""
     launched = []
     monkeypatch.setattr(ops, "_on_cuda", lambda *xs: True)
-    for name in ("swa_cuda", "rglru_cuda", "mlstm_cuda"):
-        monkeypatch.setattr(ops, name,
-                            lambda *a, name=name: launched.append(name))
+    for name in ("SWA", "RGLRU", "MLSTM"):
+        monkeypatch.setattr(ops, name, lambda *a, name=name: (
+            launched.append(name), None, None, None))
     x = torch.zeros(1, 16, 2, 8, requires_grad=True)
     g = torch.zeros(1, 16, 2, requires_grad=True)
     a = torch.zeros(1, 16, 8, requires_grad=True)
@@ -428,7 +429,7 @@ def test_forward_only_wrappers_refuse_inputs_that_require_grad(monkeypatch):
     with torch.no_grad():
         for call in calls.values():
             call()
-    assert launched == ["swa_cuda", "rglru_cuda", "mlstm_cuda"]
+    assert launched == ["SWA", "RGLRU", "MLSTM"]
 
 
 @pytest.mark.parametrize("remat", ["dots", "full"])
