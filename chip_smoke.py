@@ -33,7 +33,10 @@
    just before it and read just after; the script checks that the path
    launched each of its kernels and no other (the fingerprint once per
    leaf, at set-up), that the replicas agree, and that a decode outside
-   the server gives the same tokens;
+   the server gives the same tokens; (b) then, with the same checks,
+   gemma3-4b (one repetition of its five window layers and one global
+   layer) and chatglm3-6b (4 of 28 layers), at full width, cut in depth,
+   one session of two turns;
 8. trains qwen3-8b at full width, 4 of its 36 layers (bf16, random weights
    from seed 0, AdamW with bf16 moments and an fp32 master, the config's
    remat "full"), through the port's uBFT-replicated trainer: three
@@ -81,7 +84,9 @@
    digest there equal to the manifest's) and take the same 2 steps through
    ``make_train_step(cfg, opt_cfg, ctx)``: losses and digests equal bit
    for bit; then step 0 on the (1, 1, 1) mesh with "pod" and both
-   ``fsdp_gather`` and ``attn_head_shard``, within phase 6's bf16 limit;
+   ``fsdp_gather`` and ``attn_head_shard``, within phase 6's bf16 limit
+   (only ``attn_head_shard`` changes the program: ``fsdp_gather`` is kept
+   for the reference's config, and the products gather every weight);
    (b) gemma3-1b and recurrentgemma-2b at full width and depth, a prompt
    of 384 tokens and 8 greedy tokens through ``make_prefill`` and
    ``make_serve_step`` with caches laid out by ``cache_pspecs``: tokens,
@@ -111,7 +116,13 @@
    (expert parallelism) on the 2x16x16 one, each ending ``ok``, with
    per-device peak GB, TFLOPs and
    collective GB; the first and the last also traced on fake CPU tensors,
-   as a CPU-only build traces them, must give the same counts.
+   as a CPU-only build traces them, must give the same counts; the
+   qwen3-8b cell's FLOPs and collective bytes within 2% of torch 2.13's
+   count (``TORCH_2_13_QWEN3_TRAIN``), both printed with the operator
+   whose FLOPs differ most; (d) ``launch/roofline.py`` over (c)'s records
+   on fake CUDA tensors: each cell's compute, memory and collective terms
+   at the H100's published rates and links, finite, the bound their
+   largest.
 
 Any failure raises.  ``--only 3,12`` runs the build and those phases
 alone and prints no result.  The line before the last is a JSON object of
@@ -720,9 +731,11 @@ def phase_layers() -> None:
 
 def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
                 prompt_len: int, gen_len: int, kernels, profile_turn: int,
-                layers: int = 0, check_model=None, tag: str = "[7]") -> dict:
+                layers: int = 0, check_model=None, tag: str = "[7]",
+                pattern_reps: int = 0) -> dict:
     """Serves ``arch`` at full width through 3 replicas, at full depth or
-    cut to ``layers`` (a uniform stack); returns the kernel launch counts
+    cut to ``layers`` (a uniform stack) or to ``pattern_reps`` repetitions
+    of its first group's pattern; returns the kernel launch counts
     of this path, which must be the ``kernels`` named and the fingerprint
     once per leaf (the weights' attestation at set-up).  ``check_model(
     model, max_seq)`` runs after the path's checks, its launches
@@ -730,7 +743,12 @@ def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
     full = get_config(arch)
     cfg = full if not layers else dataclasses.replace(
         full, n_layers=layers, blocks=default_blocks(layers))
-    depth = (f"{cfg.n_layers} of {full.n_layers} layers" if layers
+    if pattern_reps:
+        pattern = full.blocks[0][0]
+        cfg = dataclasses.replace(full, n_layers=len(pattern) * pattern_reps,
+                                  blocks=((pattern, pattern_reps),))
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers"
+             if layers or pattern_reps
              else f"{cfg.n_layers} layers (full depth)")
     max_seq = turns * (prompt_len + gen_len) + 8
     serve.set_deterministic()
@@ -1380,9 +1398,10 @@ def mesh_train(card_line: str, ctx, ctx_pod, tmp: Path) -> int:
     replicas of ``ReplicatedTrainer``, which take the same two steps
     through ``make_train_step(cfg, opt_cfg, ctx)``: losses and digests must
     equal the unsharded replica's bit for bit.  Then step 0 again on the
-    (1, 1, 1) pod mesh with ``fsdp_gather`` and ``attn_head_shard``: the
-    loss and gradients against the unsharded step 0 within phase 6's bf16
-    limit.  Returns the fingerprint launches."""
+    (1, 1, 1) pod mesh with ``fsdp_gather`` and ``attn_head_shard`` (only
+    the second changes the program: K/V repeated to H heads): the loss and
+    gradients against the unsharded step 0 within phase 6's bf16 limit.
+    Returns the fingerprint launches."""
     full = get_config("qwen3-8b")
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS,
                               blocks=default_blocks(TRAIN_LAYERS))
@@ -1465,6 +1484,7 @@ def mesh_train(card_line: str, ctx, ctx_pod, tmp: Path) -> int:
     torch.cuda.empty_cache()
 
     # step 0 on the pod mesh with both flags: K/V repeated to H heads
+    # (fsdp_gather changes nothing: the products gather every weight)
     flagged = dataclasses.replace(cfg, fsdp_gather=True, attn_head_shard=True)
     _, m, _ = load_checkpoint(str(tmp), flagged, device="cuda")
     m = reshard(m, ctx_pod.mesh, param_pspecs(flagged, m, ctx_pod.mesh))
@@ -1683,6 +1703,16 @@ DRYRUN_CELLS = (("qwen3-8b", "train_4k", "single", "cuda"),
                 ("qwen3-moe-235b-a22b", "decode_32k", "multi", "cpu"))
 DRYRUN_TIMEOUT_S = 900
 DRYRUN_OUT = ROOT / "artifacts" / "dryrun_torch_chip"
+#: qwen3-8b ``train_4k`` on 16 x 16, per device, as ``python -m
+#: repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k --mesh single
+#: --device cpu`` counts it on torch 2.13.0+cpu (the CPU sweep of
+#: PERF.md §6): phase 12c holds this torch's count to it within
+#: ``TORCH_GAP`` in FLOPs and collective bytes, and names the operator
+#: whose FLOPs differ most
+TORCH_2_13_QWEN3_TRAIN = {
+    "flops": 267632297115648.0, "collectives": 102477721004.0,
+    "flops_by_op": {"mm": 228049878515712.0, "bmm": 39582418599936.0}}
+TORCH_GAP = 0.02
 #: processes this script started, stopped on the way out
 _CHILDREN: list = []
 
@@ -1754,6 +1784,28 @@ def finish_dryruns(card_line: str, started: dict) -> list:
                  f"deviation {row['fit_check']['deviation']}"
                  if row["fit_check"] else "")
               + f" [{card_line}]")
+    want = TORCH_2_13_QWEN3_TRAIN
+    for device in ("cuda", "cpu"):
+        c = records["qwen3-8b", "train_4k", "single", device]["corrected"]
+        gap = {"flops": c["flops"] / want["flops"] - 1,
+               "collectives": c["collectives"]["total"]
+               / want["collectives"] - 1}
+        by_op = {op: c["flops_by_op"].get(op, 0.0) - f
+                 for op, f in want["flops_by_op"].items()}
+        worst = max(by_op, key=lambda op: abs(by_op[op]))
+        print(f"[12c] qwen3-8b train_4k pod16x16 on fake {device} tensors, "
+              f"per device: torch {torch.__version__} {c['flops'] / 1e12:.2f} "
+              f"TFLOPs, {c['collectives']['total'] / 1e9:.3f} GB of "
+              f"collectives; torch 2.13.0+cpu {want['flops'] / 1e12:.2f} "
+              f"TFLOPs, {want['collectives'] / 1e9:.3f} GB; gap "
+              f"{100 * gap['flops']:+.3f}% / {100 * gap['collectives']:+.3f}% "
+              f"(limit {100 * TORCH_GAP:.0f}%); the operator whose FLOPs "
+              f"differ most: {worst} ({by_op[worst] / 1e12:+.3f} TFLOPs) "
+              f"[{card_line}]")
+        check(all(abs(g) <= TORCH_GAP for g in gap.values()),
+              f"qwen3-8b train_4k on torch {torch.__version__} is "
+              f"{gap} off torch 2.13's count; {worst} differs by "
+              f"{by_op[worst]:.4g} FLOPs")
     same = {}
     for (arch, shape, mesh, device), cpu_rec in records.items():
         if device != "cpu":
@@ -1944,9 +1996,37 @@ def phase_costing(card_line: str, started: dict) -> dict:
              count_prefill(card_line, "xlstm-1.3b", 300, ("cuda",)),
              count_train_step(card_line)]
     cells = finish_dryruns(card_line, started)
+    cells["roofline"] = phase_roofline(card_line)
     print(f"[12] phase 12 took {time.perf_counter() - t_phase:.1f} s "
           f"[{card_line}]")
     return {"profile": profile, "calls": calls, "dryrun": cells}
+
+
+def phase_roofline(card_line: str) -> list:
+    """Phase 12d: ``launch/roofline.py`` over 12c's records (fake CUDA
+    tensors): each cell's three terms at the H100's published rates and
+    links, every term finite and the step's bound its largest."""
+    from repro_torch.launch import roofline
+    rows = roofline.run(DRYRUN_OUT / "cuda", DRYRUN_OUT / "roofline")["rows"]
+    check(len(rows) == sum(d == "cuda" for *_, d in DRYRUN_CELLS)
+          and all(r["status"] == "ok" for r in rows),
+          f"roofline rows {rows}")
+    for r in rows:
+        terms = (r["compute_s"], r["memory_s"], r["collective_s"])
+        check(all(math.isfinite(t) and t >= 0 for t in terms)
+              and r["bound_s"] == max(terms) > 0,
+              f"roofline {r['arch']} {r['shape']}: {r}")
+        links = ", ".join(f"{a} {v['link']} {v['bytes_s'] / 1e9:.0f} GB/s"
+                          for a, v in r["links"].items())
+        print(f"[12d] roofline {r['arch']} {r['shape']} {r['mesh']}, per "
+              f"device: compute {r['compute_s']:.4g} s, memory "
+              f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s "
+              f"({links}); bound {r['bound_s']:.4g} s ({r['dominant']}), "
+              f"roofline fraction {r['roofline_fraction']:.4f} at 989 "
+              f"TFLOP/s and 3.35 TB/s, {r['attainable_fraction']:.4f} at "
+              f"the measured 716.1 / 3.009; fits 80 GB: {r['hbm_fit']} "
+              f"[{card_line}]")
+    return rows
 
 
 def file_digest(path: Path) -> str:
@@ -2016,6 +2096,17 @@ def run_all(card_line: str, t_start: float) -> int:
                           gen_len, kernels, prof)
         for name, n in got.items():
             launches[name] += n
+    # the per-arch coverage's card half: the two dense archs that no other
+    # phase serves, at full width, cut in depth (gemma3-4b to one
+    # repetition of its five window layers and one global layer)
+    for arch, kernels, cut in (("gemma3-4b", ("swa", "fingerprint"),
+                                {"pattern_reps": 1}),
+                               ("chatglm3-6b", ("fingerprint",),
+                                {"layers": 4})):
+        got = phase_serve(card_line, arch, 1, 2, 256, 8, kernels, 1,
+                          tag="[7b]", **cut)
+        for name, n in got.items():
+            launches[name] += n
     launches["fingerprint"] += phase_train(card_line)
     launches["fingerprint"] += phase_recurrent_train(card_line)
     for name, n in phase_moe(card_line, fp).items():
@@ -2030,7 +2121,7 @@ def run_all(card_line: str, t_start: float) -> int:
                     **{k: row[k] for k in ("max_abs_err", *TIMES, "shapes")
                        if k in row})
                for row in rows]
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"total {time.perf_counter() - t_start:.1f} s [{card_line}]")
     print(card_line)
     print(json.dumps({"phase12": costs}))
     print(json.dumps({"kernels": kernels}))

@@ -51,7 +51,7 @@ from __future__ import annotations
 import contextlib
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -145,22 +145,32 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
-def _group_size(args) -> int:
-    """The size of the group a collective runs over: its
-    ``ProcessGroup``'s, else that of the group its ``group_name`` names,
-    else its ``group_size`` argument."""
+def _group(args) -> Tuple[int, str]:
+    """The size and name of the group a collective runs over: its
+    ``ProcessGroup``'s, else those of the group its ``group_name`` names,
+    else its ``group_size`` argument and no name."""
     from torch.distributed.distributed_c10d import _resolve_process_group
     for a in args:
         if isinstance(a, torch.ScriptObject):
             try:
-                return dist.ProcessGroup.unbox(a).size()
+                pg = dist.ProcessGroup.unbox(a)
             except (RuntimeError, TypeError):
                 continue          # a ReduceOp
+            return pg.size(), pg.group_name
     ints = [a for a in args if isinstance(a, int) and not isinstance(a, bool)]
     names = [a for a in args if isinstance(a, str)]
     if names:
-        return _resolve_process_group(names[-1]).size()
-    return ints[-1] if ints else 1
+        return _resolve_process_group(names[-1]).size(), names[-1]
+    return (ints[-1] if ints else 1), ""
+
+
+def mesh_axes(mesh) -> Dict[str, str]:
+    """The name of each mesh dimension's process group -> the dimension's
+    name, for ``Counter(axes=...)``."""
+    if mesh is None:
+        return {}
+    return {mesh.get_group(i).group_name: name
+            for i, name in enumerate(mesh.mesh_dim_names)}
 
 
 @contextlib.contextmanager
@@ -195,17 +205,26 @@ class Counter(TorchDispatchMode):
     """Counts the operators dispatched inside it (see the module's
     docstring): ``flops``, ``bytes``, ``flops_by_op`` (operator name ->
     FLOPs), ``kernels`` (kernel operator name -> calls), ``coll`` (the
-    reference's collective keys), and the step's memory, ``peak_bytes`` and
-    ``live_bytes`` (allocated inside and held at the peak, and at the
-    end)."""
+    reference's collective keys, and with ``axes`` the operand and link
+    bytes and counts by the mesh dimension each collective's group spans:
+    ``total@<axis>``, ``total_link@<axis>``, ``count@<axis>``, "other" for
+    a group of no single dimension), and the step's memory, ``peak_bytes``
+    and ``live_bytes`` (allocated inside and held at the peak, and at the
+    end).  ``axes`` maps a group's name to its mesh dimension's
+    (``mesh_axes``)."""
 
-    def __init__(self) -> None:
+    def __init__(self, axes: Optional[Dict[str, str]] = None) -> None:
         super().__init__()
         self.flops = 0.0
         self.bytes = 0.0
         self.flops_by_op: Dict[str, float] = {}
         self.kernels: Dict[str, int] = {}
+        self.axes = dict(axes or {})
         self.coll = empty_coll()
+        if self.axes:
+            for axis in list(self.axes.values()) + ["other"]:
+                for key in ("total", "total_link", "count"):
+                    self.coll[f"{key}@{axis}"] = 0.0
         self.live_bytes = 0
         self.peak_bytes = 0
         self.paused = 0
@@ -272,12 +291,18 @@ class Counter(TorchDispatchMode):
         # the result: the output of a functional collective; the first
         # argument (the tensors, or the output) of a c10d one
         result = args[0] if func.namespace == "c10d" else out
-        op, link = collective_cost(kind, _nbytes(result), _group_size(args))
+        size, name = _group(args)
+        op, link = collective_cost(kind, _nbytes(result), size)
         self.coll[kind] += op
         self.coll[kind + "_link"] += link
         self.coll[kind + "_count"] += 1
         self.coll["total"] += op
         self.coll["total_link"] += link
+        if self.axes:
+            axis = self.axes.get(name, "other")
+            self.coll[f"total@{axis}"] += op
+            self.coll[f"total_link@{axis}"] += link
+            self.coll[f"count@{axis}"] += 1
 
     def _allocated(self, func, out) -> None:
         """Hold the storage of each output that the operator made (not a
@@ -291,10 +316,11 @@ class Counter(TorchDispatchMode):
                 self._hold(o)
 
 
-def count(fn, *args, **kwargs) -> Tuple[Any, Counter]:
-    """``fn(*args, **kwargs)`` run under a :class:`Counter`; returns its
-    output and the counter."""
-    counter = Counter()
+def count(fn, *args, axes: Optional[Dict[str, str]] = None,
+          **kwargs) -> Tuple[Any, Counter]:
+    """``fn(*args, **kwargs)`` run under a :class:`Counter` (``axes`` as
+    its); returns its output and the counter."""
+    counter = Counter(axes)
     with counter:
         out = fn(*args, **kwargs)
     return out, counter

@@ -9,7 +9,11 @@ the 16x16 single-pod or 2x16x16 multi-pod mesh of a fake process group of
 collectives into ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``
 with the reference's keys (``status``, ``reason``, ``memory``, ``raw``,
 ``corrected``; ``trace_s`` in place of ``lower_s``/``compile_s``).  Nothing
-is computed or allocated: the counts come from shapes.
+is computed or allocated: the counts come from shapes.  On a mesh,
+``whole_over_model`` counts by site what the sharded program ran whole on
+every "model" rank because a size does not divide that axis
+(``sharding.count_whole``), and ``reason`` names those sites: such a
+cell's per-device counts hold work the rules would cut.
 
 ``raw`` is what one trace counted, at the length it traced (``seq``).  It
 is exact: eager PyTorch runs every iteration of every loop, so no loop
@@ -21,11 +25,12 @@ Its train and prefill cells are traced at two, four and eight
 through the longer two (``corrected``, ``fit_seq``) and checked at the
 shortest (the record's ``fit_check``).  The arithmetic of such an arch
 (no attention) is affine in S, and on one device so is every count.  On
-a mesh DTensor picks its layouts by size, so the premise can fail: where
-the check is not exact, the cell is traced again at full length, and
-``corrected`` is that trace's exact count (``reason`` says how far off
-the check was).  ``--no-correct`` traces such cells at full length
-without the fit.
+a mesh too, since the sharded products, attention and scans run on local
+shards in layouts that do not change with S; should a layout left to
+DTensor change with S, the check is not exact, the cell is traced again
+at full length, and ``corrected`` is that trace's exact count
+(``reason`` says how far off the check was).  ``--no-correct`` traces
+such cells at full length without the fit.
 
 ``--device cuda`` (the default) makes fake CUDA tensors.  A train cell
 runs autograd, whose engine needs a CUDA build even for fake CUDA tensors;
@@ -204,13 +209,16 @@ def trace(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
     """One step of ``cfg`` at ``shape`` traced on fake tensors on ``mesh``
     (a ``DeviceMesh`` of the open fake process group; None: one unsharded
     device): this device's counts and memory."""
+    from repro_torch.parallel import sharding
     mode = fake_mode()
     step, args, held = _placed(cfg, shape, mesh, device, mode)
     t0 = time.perf_counter()
-    with mode, _dtensor_as_run(mesh):
-        _, counter = costing.count(step, *args)
+    with mode, _dtensor_as_run(mesh), sharding.count_whole() as whole:
+        _, counter = costing.count(step, *args,
+                                   axes=costing.mesh_axes(mesh))
     trace_s = time.perf_counter() - t0
     return {"seq": shape.seq, "trace_s": trace_s,
+            "whole_over_model": dict(whole),
             "flops": counter.flops, "bytes": counter.bytes,
             "collectives": dict(counter.coll),
             "kernels": dict(counter.kernels),
@@ -233,8 +241,8 @@ def fit(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
     ``shape.seq``) for an arch with sLSTM layers (it has no attention:
     checked): each count taken as affine in S through the traces at the
     two longer ``fit_lengths``, and checked at the shortest.  On a mesh
-    the premise can fail, since DTensor picks its layouts by size;
-    ``fit_check`` holds each count's deviation there, 0 where it holds."""
+    the premise holds while no layout changes with S; ``fit_check`` holds
+    each count's deviation there, 0 where it holds."""
     if any(s.kind == "attn" for s in cfg.layer_list()):
         raise ValueError(f"{cfg.name}: an attention layer's cost is not "
                          f"affine in S; the fit does not hold")
@@ -249,6 +257,7 @@ def fit(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
     S = shape.seq
     fitted = {"seq": S, "fit_seq": [s0, s1, s2],
               "trace_s": r0["trace_s"] + r1["trace_s"] + r2["trace_s"],
+              "whole_over_model": r2["whole_over_model"],
               "flops": at(r1["flops"], r2["flops"], S),
               "bytes": at(r1["bytes"], r2["bytes"], S),
               "collectives": {k: at(r1["collectives"][k],
@@ -275,7 +284,7 @@ def fit(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
 
 def _record(r: Dict[str, Any]) -> Dict[str, Any]:
     keys = ("flops", "bytes", "collectives", "kernels", "flops_by_op", "seq",
-            "fit_seq")
+            "fit_seq", "whole_over_model")
     return {k: r[k] for k in keys if k in r}
 
 
@@ -320,6 +329,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                      f"{dev[worst]:.1%} off the line through the longer two "
                      f"in {worst} (DTensor's layouts change with S), so the "
                      f"cell was traced at full length")
+    whole = corr["whole_over_model"]
+    if whole:
+        notes.append("run whole on every \"model\" rank, a size not dividing "
+                     "it: " + ", ".join(f"{k} x{v}" for k, v in
+                                        sorted(whole.items())))
     out.update({"status": "ok", "reason": "; ".join(notes),
                 "trace_s": round(corr["trace_s"], 1),
                 "memory": corr["memory"], "raw": _record(raw),

@@ -16,13 +16,16 @@ ported from ``repro.models.attention``.
   buffer of w slots (global position p in slot p % w), global layers the
   full sequence.  Decode writes the new key and value into the cache in
   place.
-* **on a mesh** (a ``ShardCtx``): attention runs on each rank's local
-  shards (``sharded_attention``), a batch slice and, where the head counts
-  divide, a slice of the heads; with ``cfg.attn_head_shard`` K/V are first
-  repeated to H heads, as the reference does.  Attention is exact per head
-  and batch row, so the kernel and the plain versions run unchanged there.
-  Decode writes the new slot into the local shard that owns it (the
-  caches of ``sharding.cache_pspecs`` cut the sequence over "model").
+* **on a mesh** (a ``ShardCtx``): the q/k/v products are column-cut and
+  the output product row-cut over "model" (``sharding.columns``,
+  ``sharding.rows``), and attention runs on each rank's local shards
+  (``sharded_attention``): a batch slice and a slice of the heads where H
+  divides the "model" size (K/V repeated to H heads where KV does not, or
+  with ``cfg.attn_head_shard``, as the reference does), else a slice of
+  the query positions.  Attention is exact per head, batch row and query,
+  so the kernel and the plain versions run unchanged there.  Decode
+  writes the new slot into the local shard that owns it (the caches of
+  ``sharding.cache_pspecs`` cut the sequence over "model").
 """
 
 from __future__ import annotations
@@ -30,12 +33,12 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Partial, Replicate
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.swa import swa_plain as banded_window_attention
 from repro_torch.models.common import ModelConfig, rms_norm, rope
-from repro_torch.parallel import sharding
+from repro_torch.parallel import comm, sharding
 
 __all__ = ["NEG_INF", "attention_train", "banded_window_attention",
            "decode_attention", "full_attention_chunked", "init_cache",
@@ -50,12 +53,14 @@ def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
 
 
 def qkv_project(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                positions: torch.Tensor
+                positions: torch.Tensor, ctx=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> q (B,S,H,dh), k/v (B,S,KV,dh) with RoPE + qk-norm."""
-    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.dh)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, cfg.dh)
-    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, cfg.dh)
+    """x: (B, S, D) -> q (B,S,H,dh), k/v (B,S,KV,dh) with RoPE + qk-norm
+    (with a context, the products column-cut over "model")."""
+    q, k, v = sharding.columns(ctx, x, p, ("wq", "wk", "wv"))
+    q = _split_heads(q, cfg.n_heads, cfg.dh)
+    k = _split_heads(k, cfg.n_kv_heads, cfg.dh)
+    v = _split_heads(v, cfg.n_kv_heads, cfg.dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -78,20 +83,22 @@ def _gqa_context(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def full_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           q_chunk: int) -> torch.Tensor:
-    """Causal full attention over query chunks (O(S·c) score memory)."""
+                           q_chunk: int, q_offset: int = 0) -> torch.Tensor:
+    """Causal full attention over query chunks (O(S·c) score memory).
+    With ``q_offset``, q holds the queries of positions ``q_offset`` on
+    and k/v the keys from position 0 (a block of a sharded sequence)."""
     B, S, H, dh = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = dh ** -0.5
-    kpos = torch.arange(S, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
     c = min(q_chunk, S)
     outs = []
     for i0 in range(0, S, c):
         qi = q[:, i0:i0 + c]
         n = qi.shape[1]                                # the last may be short
         s = _gqa_scores(qi.reshape(B, n, KV, G, dh), k) * scale
-        qpos = i0 + torch.arange(n, device=q.device)
+        qpos = q_offset + i0 + torch.arange(n, device=q.device)
         mask = kpos[None, :] <= qpos[:, None]          # causal
         s = torch.where(mask, s, NEG_INF)
         outs.append(_gqa_context(torch.softmax(s, dim=-1), v))
@@ -124,19 +131,101 @@ def _heads_spec(cfg: ModelConfig, ctx, shape, kv_heads: int):
                                ctx.mesh)
 
 
-def sharded_attention(cfg: ModelConfig, ctx, attend, q: torch.Tensor,
-                      k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``attend(q, k, v)`` of DTensors q (B, S, H, dh), k/v (B, S, KV, dh),
-    run on each rank's local batch rows and heads.  With
-    ``cfg.attn_head_shard`` and H divisible by the "model" size, K/V are
-    repeated to H heads first and every head count is sharded."""
-    G = cfg.n_heads // cfg.n_kv_heads
-    if cfg.attn_head_shard and cfg.n_heads % ctx.tp_size == 0 and G > 1:
+def sharded_attention(cfg: ModelConfig, ctx, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, window: Optional[int],
+                      band) -> torch.Tensor:
+    """Causal attention of DTensors q (B, S, H, dh), k/v (B, S, KV, dh) on
+    each rank's local shards, every batch row on its data shard and the
+    work of each cut over "model" as the reference's program cuts it:
+
+    * H divisible by the "model" size: by heads.  Where KV is not (or with
+      ``cfg.attn_head_shard``), K/V are first repeated to H heads.
+    * else by query positions (``_attention_by_rows``).
+
+    ``band(q, k, v, window)`` is the window layers' attention (the kernel
+    in prefill, the plain banded form in training); with ``band`` None,
+    the chunked full attention."""
+    B, S, H, dh = q.shape
+    G = H // cfg.n_kv_heads
+    tp = ctx.tp_size
+    if H % tp:
+        return _attention_by_rows(cfg, ctx, q, k, v, window, band)
+    if (cfg.attn_head_shard or cfg.n_kv_heads % tp) and G > 1:
         k, v = _repeat_heads(k, G), _repeat_heads(v, G)
     spec = _heads_spec(cfg, ctx, tuple(q.shape), k.shape[2])
     kv_spec = _heads_spec(cfg, ctx, tuple(k.shape), k.shape[2])
+
+    def attend(q, k, v):
+        if band is not None:
+            return band(q, k, v, window)
+        return full_attention_chunked(q, k, v, cfg.q_chunk)
+
     return sharding.on_shards(attend, ctx.mesh, (spec, kv_spec, kv_spec),
                               spec)(q, k, v)
+
+
+def _row_blocks(S: int, tp: int, rank: int, zigzag: bool):
+    """The query blocks [b0, b1) that ``rank`` of ``tp`` attends for, in
+    the order the ranks' outputs are gathered: one contiguous block each,
+    or with ``zigzag`` blocks r and 2·tp - 1 - r of 2·tp, so that every
+    rank meets as many causal keys.  None where S does not divide."""
+    n = 2 * tp if zigzag else tp
+    if S % n:
+        return None
+    blk = S // n
+    idx = [rank, n - 1 - rank] if zigzag else [rank]
+    return [(i * blk, (i + 1) * blk) for i in idx]
+
+
+def _attention_by_rows(cfg: ModelConfig, ctx, q, k, v, window, band):
+    """Attention whose heads do not divide the "model" size, cut over it
+    by query positions: each rank holds q, k and v whole (gathered) and
+    attends for its blocks of queries, the banded window layers over one
+    contiguous block with its window of earlier keys, the others over two
+    blocks taken zig-zag, each against the keys up to its end (every key
+    it may see and no later one); the blocks' outputs are gathered whole
+    over "model".  q, k and v get partial gradients (a rank's queries
+    see only part of them)."""
+    mesh, tp_axis = ctx.mesh, ctx.tp_axis
+    B, S, H, dh = q.shape
+    tp = ctx.tp_size
+    use_band = band is not None
+    group = mesh.get_group(tp_axis)
+    rank = mesh.get_local_rank(tp_axis)
+    blocks = _row_blocks(S, tp, rank, zigzag=not use_band)
+    if blocks is None:
+        sharding.note_whole("attention")
+    spec = sharding._divisible((ctx.dp_axes, None, None, None),
+                               tuple(q.shape), mesh)
+    pls = sharding.placements(spec, mesh)
+    t = tuple(mesh.mesh_dim_names).index(tp_axis)
+    grad = tuple(Partial() if i == t and blocks else pl
+                 for i, pl in enumerate(pls))
+
+    def block(ql, kl, vl, b0, b1):
+        if use_band:
+            k0 = max(0, b0 - window + 1)
+            return band(ql[:, k0:b1], kl[:, k0:b1], vl[:, k0:b1],
+                        window)[:, b0 - k0:]
+        return full_attention_chunked(ql[:, b0:b1], kl[:, :b1], vl[:, :b1],
+                                      cfg.q_chunk, q_offset=b0)
+
+    def local(ql, kl, vl):
+        if blocks is None:      # S does not divide: every rank attends whole
+            return block(ql, kl, vl, 0, S)
+        mine = torch.cat([block(ql, kl, vl, b0, b1) for b0, b1 in blocks], 1)
+        out = comm.gather(mine, group, 1, "attn_rows")
+        if use_band:
+            return out
+        n = 2 * tp              # gathered as blocks 0, n-1, 1, n-2, ...
+        order = [i for r in range(tp) for i in (r, n - 1 - r)]
+        inv = torch.tensor([order.index(i) for i in range(n)],
+                           device=out.device)
+        return out.reshape(out.shape[0], n, S // n, H, dh)[:, inv].reshape(
+            out.shape)
+
+    return sharding.on_shards(local, mesh, (spec, spec, spec), spec,
+                              (grad, grad, grad))(q, k, v)
 
 
 def init_cache(cfg: ModelConfig, window: Optional[int], batch: int,
@@ -190,7 +279,7 @@ def decode_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     G = H // KV
     pos1 = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = qkv_project(cfg, p, x, pos1)
+    q, k_new, v_new = qkv_project(cfg, p, x, pos1, ctx)
     k, v, pos = cache["k"], cache["v"], cache["pos"]
     slot = position % k.shape[1]
     if ctx is None:
@@ -208,7 +297,7 @@ def decode_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     s = torch.where(valid, s, NEG_INF)
     probs = torch.softmax(s, dim=-1)
     ctx_ = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
-    return ctx_.reshape(B, 1, H * dh) @ p["wo"], cache
+    return sharding.rows(ctx, ctx_.reshape(B, 1, H * dh), p, "wo"), cache
 
 
 def _fill_cache(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
@@ -237,15 +326,14 @@ def prefill_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     """Prefill attention; fills ``cache`` (fresh, from ``init_cache``) if
     given.  With a context the new cache is made of DTensors, batch over
     the data axes (and kv heads over "model" where they divide)."""
-    q, k, v = qkv_project(cfg, p, x, positions)
-
-    def attend(q, k, v):
-        if window is not None:
-            return ops.sliding_window_attention(q, k, v, window)
-        return full_attention_chunked(q, k, v, cfg.q_chunk)
-
-    out = (attend(q, k, v) if ctx is None
-           else sharded_attention(cfg, ctx, attend, q, k, v))
+    q, k, v = qkv_project(cfg, p, x, positions, ctx)
+    if ctx is not None:
+        out = sharded_attention(cfg, ctx, q, k, v, window,
+                                window and ops.sliding_window_attention)
+    elif window is not None:
+        out = ops.sliding_window_attention(q, k, v, window)
+    else:
+        out = full_attention_chunked(q, k, v, cfg.q_chunk)
     B, S = x.shape[:2]
     new_cache = None
     if cache is not None and ctx is None:
@@ -266,4 +354,4 @@ def prefill_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             [kv_spec, kv_spec, (None,)])(k, v)
         new_cache = {"k": ck, "v": cv, "pos": cpos}
     out = out.reshape(B, S, cfg.n_heads * cfg.dh)
-    return out @ p["wo"], new_cache
+    return sharding.rows(ctx, out, p, "wo"), new_cache

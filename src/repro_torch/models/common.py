@@ -70,7 +70,10 @@ class ModelConfig:
     logits_fp32: bool = False    # logits cast to fp32 before the loss
     attest: bool = True          # fingerprint grads/params each step (uBFT)
     # multi-device layout (with a ``ShardCtx`` only; no effect without one)
-    fsdp_gather: bool = False    # gather each layer's weights over "data"
+    # the reference's per-layer gather of the FSDP-cut weights; the port's
+    # sharded products gather each weight over "data" whatever its value
+    # (``sharding.columns``, ``sharding.rows``)
+    fsdp_gather: bool = False
     attn_head_shard: bool = False  # expand KV to H heads, shard the heads
 
     @property

@@ -107,9 +107,12 @@ def moe_ffn_local(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     return out
 
 
-def dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN. x: (..., D)."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              ctx=None) -> torch.Tensor:
+    """SwiGLU FFN. x: (..., D); with a context, the gate and up products
+    column-cut over "model" and the down product row-cut, reduced once."""
+    g, u = sharding.columns(ctx, x, p, ("w_gate", "w_up"))
+    return sharding.rows(ctx, F.silu(g) * u, p, "w_down")
 
 
 def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor],

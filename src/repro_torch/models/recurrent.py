@@ -22,10 +22,13 @@ one forward and refuse in the recompute.
 Decode forms: single-step state updates that return new state tensors; the
 state replaces the KV cache.
 
-On a mesh (a ``ShardCtx``), the kernels and their plain versions run on
-each rank's local shards: the mLSTM and the sLSTM's loop on its batch rows
-and, where the head count divides, its heads; the RG-LRU's causal conv and
-scan on its batch rows and lanes, which ``lam``, ``wa`` and ``wx`` put on
+On a mesh (a ``ShardCtx``), the products are column-cut or row-cut over
+"model" as the rules cut their weights (``sharding.columns``,
+``sharding.rows``; the RG-LRU's row-cut gates reduce-scattered onto its
+lanes), and the kernels and their plain versions run on each rank's
+local shards: the mLSTM and the sLSTM's loop on its batch rows and, where
+the head count divides, its heads; the RG-LRU's causal conv and scan on
+its batch rows and lanes, which ``lam``, ``wa`` and ``wx`` put on
 "model".  All are exact per head or lane.
 """
 
@@ -46,25 +49,31 @@ State = Dict[str, torch.Tensor]
 NEG_INF = -1e30
 
 
-def _gated_mlp(p: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
-    u, g = torch.chunk(h @ p["up"], 2, dim=-1)
-    return (F.silu(g) * u) @ p["down"]
+def _out_and_mlp(p: Dict[str, torch.Tensor], inner: torch.Tensor,
+                 h: torch.Tensor, ctx=None) -> torch.Tensor:
+    """A block's output product ``inner @ wo`` plus its gated MLP on ``h``,
+    ``(silu(g) * u) @ down``: both row-cut, so on a mesh their partial
+    sums are added and reduced over "model" once."""
+    u, g = sharding.columns(ctx, h, p, ("up",), split=2)
+    return sharding.rows_sum(ctx, p, [(inner, "wo"), (F.silu(g) * u, "down")])
 
 
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
-def _mlstm_gates(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
+def _mlstm_gates(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 ctx=None):
     """Returns (q, k, v, i_tilde, f_tilde) for x: (B, S, D)."""
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.dh
-    y = x @ p["wq"]
+    y, yk, yv, yi, yf = sharding.columns(
+        ctx, x, p, ("wq", "wk", "wv", "wi", "wf"))
     scale = weak_scalar(dh ** -0.5, y)
     q = sharding.unflatten(y, -1, (H, dh)) * scale
-    k = sharding.unflatten(x @ p["wk"], -1, (H, dh)) * scale
-    v = sharding.unflatten(x @ p["wv"], -1, (H, dh))
-    it = (x @ p["wi"]).float()                               # (B, S, H)
-    ft = (x @ p["wf"]).float() + p["bf"].float()
+    k = sharding.unflatten(yk, -1, (H, dh)) * scale
+    v = sharding.unflatten(yv, -1, (H, dh))
+    it = yi.float()                                          # (B, S, H)
+    ft = yf.float() + p["bf"].float()
     return q, k, v, it, ft
 
 
@@ -84,7 +93,7 @@ def mlstm_train(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     pad = (-S) % c
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
-    q, k, v, it, ft = _mlstm_gates(cfg, p, x)
+    q, k, v, it, ft = _mlstm_gates(cfg, p, x, ctx)
     chunkwise = mlstm_plain if train else ops.mlstm_chunkwise_state
     if ctx is None:
         h, (C, n, m) = chunkwise(q, k, v, it, ft, c)
@@ -100,6 +109,8 @@ def _mlstm_on_shards(cfg: ModelConfig, ctx, chunkwise, q, k, v, it, ft,
     dh), it/ft (B, S, H) -> h and the final (C, n, m), cut alike."""
     shape = tuple(q.shape)
     heads = ctx.tp_axis if cfg.n_heads % ctx.tp_size == 0 else None
+    if heads is None:
+        sharding.note_whole("mlstm")
     qs = sharding._divisible((ctx.dp_axes, None, heads, None), shape,
                              ctx.mesh)
     gs = qs[:3]
@@ -121,7 +132,7 @@ def mlstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     inner, state = mlstm_train(cfg, p, h, chunk=cfg.mlstm_chunk, train=train,
                                ctx=ctx)
-    y = inner @ p["wo"] + _gated_mlp(p, h)
+    y = _out_and_mlp(p, inner, h, ctx)
     return x + y, state
 
 
@@ -134,12 +145,12 @@ def mlstm_init_state(cfg: ModelConfig, batch: int, device=None) -> State:
 
 
 def mlstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-               state: State) -> Tuple[torch.Tensor, State]:
+               state: State, ctx=None) -> Tuple[torch.Tensor, State]:
     """Single decode step. x: (B, 1, D)."""
     B = x.shape[0]
     H, dh = cfg.n_heads, cfg.dh
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v, it, ft = _mlstm_gates(cfg, p, h)
+    q, k, v, it, ft = _mlstm_gates(cfg, p, h, ctx)
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()  # (B, H, dh)
     it, ft = it[:, 0], ft[:, 0]                                  # (B, H)
     lf = sharding.elementwise(F.logsigmoid, ft)
@@ -152,8 +163,8 @@ def mlstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.clamp(torch.einsum("bhd,bhd->bh", q, n).abs()[..., None],
                       min=1.0)
-    y = (num / den).to(x.dtype).reshape(B, 1, H * dh) @ p["wo"]
-    y = y + _gated_mlp(p, h)
+    y = _out_and_mlp(p, (num / den).to(x.dtype).reshape(B, 1, H * dh), h,
+                     ctx)
     return x + y, {"C": C, "n": n, "m": m_new}
 
 
@@ -173,15 +184,16 @@ def _slstm_cell(rz, zt, it, ft, ot, c_prev, h_prev, m_prev):
 
 
 def _slstm_inputs(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                  hin: torch.Tensor):
+                  hin: torch.Tensor, ctx=None):
     D = hin.shape[-1]
     H = cfg.n_heads
 
     def heads(y):
         return sharding.unflatten(y, -1, (H, D // H))
 
-    return (heads(hin @ p["wz"]), heads((hin @ p["wi"]).float()),
-            heads((hin @ p["wf"]).float()), heads(hin @ p["wo_gate"]))
+    z, i, f, o = sharding.columns(
+        ctx, hin, p, ("wz", "wi", "wf", "wo_gate"))
+    return heads(z), heads(i.float()), heads(f.float()), heads(o)
 
 
 def slstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -189,13 +201,12 @@ def slstm_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     """sLSTM residual block, a loop over time (sequential recurrence).
     Returns (output, state)."""
     hin = rms_norm(x, p["ln1"], cfg.norm_eps)
-    z, i, f, o = _slstm_inputs(cfg, p, hin)
+    z, i, f, o = _slstm_inputs(cfg, p, hin, ctx)
     if ctx is None:
         hs, c, h, m = _slstm_loop(p["rz"], z, i, f, o)
     else:
         hs, c, h, m = _slstm_on_shards(cfg, ctx, p["rz"], z, i, f, o)
-    y = sharding.flatten(hs, 2) @ p["wo"]
-    y = y + _gated_mlp(p, hin)
+    y = _out_and_mlp(p, sharding.flatten(hs, 2), hin, ctx)
     return x + y, {"c": c, "h": h, "m": m}
 
 
@@ -221,6 +232,8 @@ def _slstm_on_shards(cfg: ModelConfig, ctx, rz, z, i, f, o):
     divides, its heads (``rz`` cut alike): every step's operators run on
     local tensors, in a layout that does not change with the length."""
     heads = ctx.tp_axis if cfg.n_heads % ctx.tp_size == 0 else None
+    if heads is None:
+        sharding.note_whole("slstm")
     xs = sharding._divisible((ctx.dp_axes, None, heads, None),
                              tuple(z.shape), ctx.mesh)
     ss = (xs[0], xs[2], None)
@@ -242,14 +255,13 @@ def slstm_init_state(cfg: ModelConfig, batch: int, device=None) -> State:
 
 
 def slstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-               state: State) -> Tuple[torch.Tensor, State]:
+               state: State, ctx=None) -> Tuple[torch.Tensor, State]:
     B = x.shape[0]
     hin = rms_norm(x, p["ln1"], cfg.norm_eps)
-    zt, it, ft, ot = (a[:, 0] for a in _slstm_inputs(cfg, p, hin))
+    zt, it, ft, ot = (a[:, 0] for a in _slstm_inputs(cfg, p, hin, ctx))
     c, h, m = _slstm_cell(p["rz"], zt, it, ft, ot, state["c"], state["h"],
                           state["m"])
-    y = h.reshape(B, 1, cfg.d_model) @ p["wo"]
-    y = y + _gated_mlp(p, hin)
+    y = _out_and_mlp(p, h.reshape(B, 1, cfg.d_model), hin, ctx)
     return x + y, {"c": c, "h": h, "m": m}
 
 
@@ -259,10 +271,14 @@ def slstm_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
 _RGLRU_C = 8.0
 
 
-def _rglru_gates(p: Dict[str, torch.Tensor], uc: torch.Tensor):
-    """Decay a and the gated, normalised input for conv outputs uc."""
-    r = torch.sigmoid((uc @ p["wa"]).float())                # recurrence gate
-    i = torch.sigmoid((uc @ p["wx"]).float())                # input gate
+def _rglru_gates(p: Dict[str, torch.Tensor], uc: torch.Tensor, ctx=None):
+    """Decay a and the gated, normalised input for conv outputs uc (with a
+    context, the products row-cut and reduce-scattered, so that the gates
+    come out cut over "model" by lanes, as uc is)."""
+    r = torch.sigmoid(sharding.rows(ctx, uc, p, "wa", scatter=True)
+                      .float())                              # recurrence gate
+    i = torch.sigmoid(sharding.rows(ctx, uc, p, "wx", scatter=True)
+                      .float())                              # input gate
     log_a = -_RGLRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
@@ -276,7 +292,7 @@ def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     Returns (output, state)."""
     S = x.shape[1]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    u, gate = torch.chunk(h @ p["w_in"], 2, dim=-1)          # (B, S, F) ×2
+    u, gate = sharding.columns(ctx, h, p, ("w_in",), split=2)  # (B, S, F) ×2
     scan = rglru_plain if train else ops.rglru_scan
     if ctx is None:
         uc = _causal_conv4(u, p["conv"])
@@ -290,10 +306,10 @@ def rglru_block(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
             _causal_conv4, ctx.mesh, (lanes, w_spec), lanes,
             (sharding.placements(lanes, ctx.mesh),
              sharding.weight_grad(w_spec, lanes, ctx.mesh)))(u, p["conv"])
-        a, xin = _rglru_gates(p, uc)
+        a, xin = _rglru_gates(p, uc, ctx)
         y = sharding.on_shards(scan, ctx.mesh, (lanes, lanes), lanes)(a, xin)
     out_gated = (y * F.gelu(gate.float(), approximate="tanh")).to(x.dtype)
-    out = x + out_gated @ p["w_out"]
+    out = x + sharding.rows(ctx, out_gated, p, "w_out")
     # decode state: last recurrence value + last 3 raw conv inputs
     hist = u[:, -3:] if S >= 3 else F.pad(u, (0, 0, 3 - S, 0))
     return out, {"y": y[:, -1], "conv": hist}
@@ -316,13 +332,14 @@ def rglru_init_state(cfg: ModelConfig, batch: int, device=None) -> State:
 
 
 def rglru_step(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-               state: State) -> Tuple[torch.Tensor, State]:
+               state: State, ctx=None) -> Tuple[torch.Tensor, State]:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    u, gate = torch.chunk(h[:, 0] @ p["w_in"], 2, dim=-1)    # (B, F)
+    u, gate = sharding.columns(ctx, h[:, 0], p, ("w_in",), split=2)  # (B, F)
     hist, w = state["conv"], p["conv"]                       # (B, 3, F)
     uc = u * w[3] + hist[:, 2] * w[2] + hist[:, 1] * w[1] + hist[:, 0] * w[0]
     new_hist = torch.cat([hist[:, 1:], u[:, None]], dim=1)
-    a, xin = _rglru_gates(p, uc)
+    a, xin = _rglru_gates(p, uc, ctx)
     y = state["y"] * a + xin
     out = (y * F.gelu(gate.float(), approximate="tanh")).to(x.dtype)
-    return x + (out @ p["w_out"])[:, None], {"y": y, "conv": new_hist}
+    return x + sharding.rows(ctx, out, p, "w_out")[:, None], {
+        "y": y, "conv": new_hist}

@@ -13,10 +13,15 @@ recurrent layer.
 
 ``ShardCtx`` carries a device mesh.  Given one, the entry points take a
 model placed by ``parallel.sharding`` (DTensor parameters) and run on
-DTensors: activations are laid out where the reference constrains them,
-with ``cfg.fsdp_gather`` each layer's weights are gathered over "data",
-MoE layers run expert-parallel, and the kernels run on local shards.
-Without one, every function runs the single-device code.
+DTensors, and each layer does the work a device does in the reference's
+compiled program: its products run on local shards
+(``sharding.columns`` and ``sharding.rows``), each weight gathered over
+the data axes, every row-cut product's partial sums reduced over "model"
+at once, so that no product runs whole on a "model" rank; attention is
+cut by heads, or by query positions where the heads do not divide
+"model"; MoE layers run expert-parallel; the loss takes its max, sum and
+target over the vocab's cut; the kernels run on local shards.  Without
+one, every function runs the single-device code.
 """
 
 from __future__ import annotations
@@ -30,9 +35,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import recurrent as rec
-from repro_torch.models.attention import (attention_train, decode_attention,
-                                          init_cache, prefill_attention,
-                                          qkv_project, sharded_attention)
+from repro_torch.models.attention import (attention_train,
+                                          banded_window_attention,
+                                          decode_attention, init_cache,
+                                          prefill_attention, qkv_project,
+                                          sharded_attention)
 from repro_torch.models.common import (LayerSpec, ModelConfig, Transformer,
                                        rms_norm, weak_scalar)
 from repro_torch.models.moe import dense_ffn, moe_ffn
@@ -63,6 +70,15 @@ def _constrain(x: torch.Tensor, ctx: Optional[ShardCtx], spec) -> torch.Tensor:
                           sharding._divisible(spec, tuple(x.shape), ctx.mesh))
 
 
+def _positions(B: int, S: int, device, ctx: Optional[ShardCtx]
+               ) -> torch.Tensor:
+    """(B, S) positions 0..S-1; with a context, cut by batch over the data
+    axes as the activations are, so that RoPE's tables are made for this
+    rank's rows only."""
+    return _constrain(torch.arange(S, device=device).expand(B, S), ctx,
+                      (ctx.dp_axes, None) if ctx else None)
+
+
 def _layer(stacked, r: int) -> Dict[str, torch.Tensor]:
     return {k: t[r] for k, t in stacked.items()}
 
@@ -72,27 +88,7 @@ def _ffn_part(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               ) -> torch.Tensor:
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + (moe_ffn(cfg, p, h, ctx) if cfg.moe is not None
-                else dense_ffn(p, h))
-
-
-def _fsdp_gather(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                 ctx: Optional[ShardCtx]) -> Dict[str, torch.Tensor]:
-    """With ``cfg.fsdp_gather``: each weight of a layer laid out by its
-    compute spec, which drops the FSDP axis (the small weight is gathered
-    over "data" rather than the large activations reduced)."""
-    if ctx is None or not cfg.fsdp_gather:
-        return p
-    return {k: _constrain(v, ctx, sharding.weight_compute_spec(
-                k, tuple(v.shape), ctx.mesh)) if v.ndim >= 2 else v
-            for k, v in p.items()}
-
-
-def _table(model: Transformer, ctx: Optional[ShardCtx]) -> torch.Tensor:
-    table = model.embed
-    if ctx is not None and model.cfg.fsdp_gather:
-        table = _constrain(table, ctx, sharding.weight_compute_spec(
-            "embed", tuple(table.shape), ctx.mesh))
-    return table
+                else dense_ffn(p, h, ctx))
 
 
 def _embed_rows(table: torch.Tensor, tokens: torch.Tensor,
@@ -134,7 +130,7 @@ def embed(model: Transformer, inputs: torch.Tensor,
     if inputs.is_floating_point():
         x = inputs.to(cfg.tdtype())
     else:
-        table = _table(model, ctx)
+        table = model.embed
         rows = table[inputs] if ctx is None else _embed_rows(table, inputs,
                                                              ctx)
         x = (rows * weak_scalar(cfg.d_model ** 0.5, table)).to(cfg.tdtype())
@@ -144,16 +140,13 @@ def embed(model: Transformer, inputs: torch.Tensor,
 def logits_fn(model: Transformer, x: torch.Tensor,
               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """(B, S, D) -> (B, S, V) logits against ``lm_head``, or ``embed.T``
-    where the head is tied; in fp32 with ``cfg.logits_fp32``."""
+    where the head is tied; in fp32 with ``cfg.logits_fp32``.  With a
+    context, cut by vocab over "model" (a column-cut product)."""
     x = rms_norm(x, model.out_norm, model.cfg.norm_eps)
-    head = (_table(model, ctx).T if model.lm_head is None
-            else model.lm_head)
-    logits = x @ head.to(x.dtype)
-    if model.cfg.logits_fp32:
-        logits = logits.float()
-    if ctx is not None:
-        logits = _constrain(logits, ctx, (ctx.dp_axes, None, ctx.tp_axis))
-    return logits
+    head = model.embed.T if model.lm_head is None else model.lm_head
+    logits, = sharding.columns(ctx, x, {"lm_head": head.to(x.dtype)},
+                               ("lm_head",))
+    return logits.float() if model.cfg.logits_fp32 else logits
 
 
 def init_layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -185,11 +178,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p, x, positions,
                          max_seq: int, ctx: Optional[ShardCtx] = None):
-    p = _fsdp_gather(cfg, p, ctx)
     if spec.kind == "attn":
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        cache = init_cache(cfg, spec.window, x.shape[0], max_seq, cfg.tdtype(),
-                           x.device)
+        # on a mesh only the cache's length and positions are read: each
+        # rank fills its own shards (``prefill_attention``)
+        cache = init_cache(cfg, spec.window, x.shape[0] if ctx is None else 1,
+                           max_seq, cfg.tdtype(), x.device)
         attn_out, new_cache = prefill_attention(cfg, p, h, spec.window,
                                                 positions, cache, ctx=ctx)
         return _ffn_part(cfg, p, x + attn_out, ctx), new_cache
@@ -210,7 +204,6 @@ def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
                         ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """One layer of a decode step.  ``cache`` holds this layer's views into
     the stacked caches; they are updated in place."""
-    p = _fsdp_gather(cfg, p, ctx)
     if spec.kind == "attn":
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         attn_out, _ = decode_attention(cfg, p, h, cache, position, ctx=ctx)
@@ -219,7 +212,7 @@ def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
             "rglru": rec.rglru_step}.get(spec.kind)
     if step is None:
         raise ValueError(spec.kind)
-    x, new_state = step(cfg, p, x, cache)
+    x, new_state = step(cfg, p, x, cache, ctx)
     for k, t in new_state.items():
         cache[k].copy_(t)
     if spec.kind == "rglru" and spec.has_ffn:
@@ -240,7 +233,7 @@ def prefill(model: Transformer, inputs: torch.Tensor,
     max_seq = max_seq or S
     with sharding.mesh_mode(ctx):
         x = embed(model, inputs, ctx)
-        positions = torch.arange(S, device=inputs.device).expand(B, S)
+        positions = _positions(B, S, inputs.device, ctx)
         new_groups = []
         for (pattern, reps), stacked_g in zip(cfg.blocks, model.groups):
             per_rep = []
@@ -288,17 +281,18 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec,
     """One layer of the training forward.  Attention takes the plain banded
     or chunked path, as JAX's does; the recurrent kinds take their training
     forms, which call no forward-only kernel."""
-    p = _fsdp_gather(cfg, p, ctx)
     if spec.kind == "attn":
         B, S = x.shape[:2]
         q, k, v = qkv_project(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps),
-                              positions)
+                              positions, ctx)
         if ctx is None:
             out = attention_train(cfg, q, k, v, spec.window)
         else:
-            out = sharded_attention(cfg, ctx, functools.partial(
-                attention_train, cfg, window=spec.window), q, k, v)
-        x = x + sharding.flatten(out, 2) @ p["wo"]
+            w = spec.window
+            out = sharded_attention(cfg, ctx, q, k, v, w,
+                                    banded_window_attention
+                                    if w is not None and S > w else None)
+        x = x + sharding.rows(ctx, sharding.flatten(out, 2), p, "wo")
         return _ffn_part(cfg, p, x, ctx)
     if spec.kind == "mlstm":
         return rec.mlstm_block(cfg, p, x, train=True, ctx=ctx)[0]
@@ -374,7 +368,7 @@ def forward_train(model: Transformer, inputs: torch.Tensor,
     (B, S, V) logits."""
     B, S = inputs.shape[:2]
     x = embed(model, inputs, ctx)
-    positions = torch.arange(S, device=inputs.device).expand(B, S)
+    positions = _positions(B, S, inputs.device, ctx)
     return logits_fn(model, apply_groups_train(model, x, positions, ctx), ctx)
 
 
@@ -389,34 +383,42 @@ def lm_loss(model: Transformer, inputs: torch.Tensor, targets: torch.Tensor,
         logits = forward_train(model, inputs, ctx)
         if ctx is not None:
             targets = _constrain(targets, ctx, (ctx.dp_axes,))
+            return torch.mean(_token_losses(logits, targets, ctx))
         lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
         shifted = (logits - lmax).float()
         lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-        if ctx is None:
-            tgt = torch.gather(shifted, -1, targets[..., None].long())[..., 0]
-        else:
-            tgt = _target_logits(shifted, targets, ctx)
+        tgt = torch.gather(shifted, -1, targets[..., None].long())[..., 0]
         return torch.mean(lse - tgt)
 
 
-def _target_logits(shifted: torch.Tensor, targets: torch.Tensor,
-                   ctx: ShardCtx) -> torch.Tensor:
-    """``shifted[b, s, targets[b, s]]`` with the vocab cut over "model":
-    each rank reads the targets it holds, zeros the rest, and the ranks'
-    values are summed over "model"."""
+def _token_losses(logits: torch.Tensor, targets: torch.Tensor,
+                  ctx: ShardCtx) -> torch.Tensor:
+    """Each token's cross-entropy, ``lse - shifted[target]``, with the
+    vocab cut over "model" (the logits as ``logits_fn`` leaves them): on
+    local shards, the max, the sum of exponentials and the target's logit
+    each taken over "model" by one collective, so that no rank holds the
+    whole vocab.  Bit for bit the unsharded arithmetic where "model" has
+    one rank."""
     mesh, tp = ctx.mesh, ctx.tp_axis
-    spec = sharding._divisible((ctx.dp_axes, None, tp), tuple(shifted.shape),
+    spec = sharding._divisible((ctx.dp_axes, None, tp), tuple(logits.shape),
                                mesh)
     cut = spec[2] is not None
     group = mesh.get_group(tp)
 
-    def local(sh, tg):
-        n = sh.shape[-1]
+    def local(lg, tg):
+        lmax = torch.amax(lg, dim=-1, keepdim=True).detach()
+        if cut:
+            comm.all_reduce(lmax, [group], "loss_max",
+                            op=torch.distributed.ReduceOp.MAX)
+        shifted = (lg - lmax).float()
+        se = torch.sum(torch.exp(shifted), dim=-1)
+        lse = torch.log(comm.psum(se, group, "loss_sum") if cut else se)
+        n = shifted.shape[-1]
         idx = tg.long() - mesh.get_local_rank(tp) * n if cut else tg.long()
         mine = (idx >= 0) & (idx < n)
-        got = torch.gather(sh, -1, torch.where(mine, idx, 0)[..., None])
+        got = torch.gather(shifted, -1, torch.where(mine, idx, 0)[..., None])
         got = torch.where(mine, got[..., 0], 0.0)
-        return comm.psum(got, group, "target") if cut else got
+        return lse - (comm.psum(got, group, "target") if cut else got)
 
     return sharding.on_shards(local, mesh, (spec, spec[:2]), spec[:2])(
-        shifted, targets)
+        logits, targets)

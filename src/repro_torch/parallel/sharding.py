@@ -19,6 +19,14 @@ leading ``None``.  A mesh here is anything with ``mesh_dim_names`` and
 ``placements`` turns a spec into DTensor placements, one per mesh
 dimension; ``distribute_tree`` (the reference's ``named`` plus its
 ``device_put``) places a model, a list of leaves or a nest of caches.
+
+``columns`` and ``rows`` run a layer's products on local shards, as the
+reference's compiled program runs them: each weight gathered over the
+data axes (its gradient reduce-scattered back), column-cut products on
+inputs whole over "model", each row-cut product followed by one
+reduction over "model".  They fix the per-device work of the sharded
+program, which DTensor's propagation would otherwise choose (and choose
+differently between torch versions).
 """
 
 from __future__ import annotations
@@ -356,24 +364,237 @@ def on_shards(fn, mesh, in_specs: Sequence, out_specs,
     tuple of outputs).  ``grad_placements`` give the placements of the
     inputs' gradients where they differ from the inputs' own (a ``Partial``
     where ``fn`` sees only part of what an input feeds)."""
-    from torch.distributed.tensor.experimental import local_map
-
     def pl(spec):
         return None if spec is None else list(placements(spec, mesh))
 
+    # a list of specs: one per output; one spec: a single output
+    outs = ([pl(s) for s in out_specs] if isinstance(out_specs, list)
+            else pl(out_specs))
+    return on_placements(fn, mesh, [pl(s) for s in in_specs], outs,
+                         grad_placements)
+
+
+def on_placements(fn, mesh, in_pls: Sequence, out_pls,
+                  grad_placements: Optional[Sequence] = None):
+    """``on_shards`` with DTensor placements, one list per mesh dimension,
+    in place of specs (``out_pls``: a list of such lists for a tuple of
+    outputs)."""
+    from torch.distributed.tensor.experimental import local_map
+
     # local_map reads a tuple as one placement list per output, a list as
     # the placements of a single output
-    outs = (tuple(pl(s) for s in out_specs) if isinstance(out_specs, list)
-            else pl(out_specs))
-    ins = tuple(pl(s) for s in in_specs)
+    multi = bool(out_pls) and isinstance(out_pls[0], (list, tuple))
+    outs = (tuple(list(p) for p in out_pls) if multi
+            else None if out_pls is None else list(out_pls))
+    ins = tuple(None if p is None else list(p) for p in in_pls)
     grads = None if grad_placements is None else tuple(
         None if g is None else tuple(g) for g in grad_placements)
 
+    def lay(a, p):
+        if not isinstance(a, torch.Tensor) or p is None:
+            return a
+        if isinstance(a, DTensor):
+            return a.redistribute(mesh, p)
+        return distribute_tensor(a, mesh, p, src_data_rank=None)
+
     def run(*args):
-        args = tuple(place(a, mesh, s) if isinstance(a, torch.Tensor)
-                     and s is not None else a
-                     for a, s in zip(args, in_specs))
+        args = tuple(lay(a, p) for a, p in zip(args, ins))
         return local_map(fn, out_placements=outs, in_placements=ins,
                          in_grad_placements=grads, device_mesh=mesh)(*args)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel products: the weights gathered over the data axes, the
+# products on local shards, one reduction over "model" after a row-cut one
+# ---------------------------------------------------------------------------
+#: sites run whole on every "model" rank while ``count_whole`` is open
+_WHOLE: Optional[Dict[str, int]] = None
+
+
+@contextlib.contextmanager
+def count_whole() -> Iterator[Dict[str, int]]:
+    """Count, by site, the products and layers that the sharded program
+    runs whole on every "model" rank where the rules would cut them but a
+    size does not divide the axis (a weight's rows, a split weight's
+    chunks, attention's heads and positions, a recurrent cell's heads): the
+    dry-run records them beside its per-device counts."""
+    global _WHOLE
+    prev, _WHOLE = _WHOLE, {}
+    try:
+        yield _WHOLE
+    finally:
+        _WHOLE = prev
+
+
+def note_whole(site: str) -> None:
+    """Record one run of ``site`` whole over "model" (see ``count_whole``)."""
+    if _WHOLE is not None:
+        _WHOLE[site] = _WHOLE.get(site, 0) + 1
+
+
+def _tp_dim(ctx) -> int:
+    return tuple(ctx.mesh.mesh_dim_names).index(ctx.tp_axis)
+
+
+def _act_placements(x: torch.Tensor, mesh, t: int, model,
+                    site: str = "") -> List:
+    """An activation's placements on entry to a product: as it is laid
+    out over the data axes (a partial sum taken), ``model`` over "model"
+    (``Replicate()`` or ``Shard(last)``; where its size does not divide,
+    no cut, and ``site`` is recorded as run whole)."""
+    pls = (list(x.placements) if isinstance(x, DTensor)
+           else [Replicate()] * mesh.ndim)
+    pls = [Replicate() if pl.is_partial() else pl for pl in pls]
+    if model.is_shard() and x.shape[-1] % mesh.size(t):
+        note_whole(site)
+        model = Replicate()
+    pls[t] = model if mesh.size(t) > 1 else Replicate()
+    return pls
+
+
+def _weight_placements(name: str, w: torch.Tensor, mesh) -> List:
+    """A weight's placements at compute: ``weight_compute_spec``, its
+    storage cut over "model" with the FSDP cut gathered (ZeRO-3 style)."""
+    return list(placements(weight_compute_spec(name, tuple(w.shape), mesh),
+                           mesh))
+
+
+def _grad_placements(w_pls: Sequence, act_pls: Sequence, t: int) -> Tuple:
+    """A weight's gradient from a function on local shards: a partial sum
+    over each data axis that cuts the activations."""
+    return tuple(Partial() if i != t and a.is_shard() else w
+                 for i, (w, a) in enumerate(zip(w_pls, act_pls)))
+
+
+def columns(ctx, x: torch.Tensor, p: Dict[str, torch.Tensor],
+            names: Sequence[str], split: int = 1) -> List[torch.Tensor]:
+    """``x @ p[name]`` for each of ``names`` (column-cut weights: their
+    output dimension cut over "model"); with ``split``, each product's
+    output chunked into ``split`` pieces along its last dimension, as
+    ``torch.chunk``.  Without a context, the plain products.
+
+    With one, the products run on local shards: ``x`` whole over "model"
+    (through ``comm.copy_to``, which sums the ranks' gradients), each
+    weight laid out by ``weight_compute_spec`` (gathered over the data
+    axes), each output cut over "model" where its weight is (else whole),
+    so that no product runs whole on every "model" rank.  A split weight
+    is laid out as (in, split, out / split), cut on its last dimension, so
+    that every chunk is cut alike."""
+    weights = [p[n] for n in names]
+    if ctx is None:
+        outs = [x @ w for w in weights]
+        return ([c for o in outs for c in torch.chunk(o, split, dim=-1)]
+                if split > 1 else outs)
+    from repro_torch.parallel import comm
+    mesh, t = ctx.mesh, _tp_dim(ctx)
+    x_pls = _act_placements(x, mesh, t, Replicate())
+    w_pls = [_weight_placements(n, w, mesh) for n, w in zip(names, weights)]
+    if split > 1:
+        weights = [unflatten(w, -1, (split, w.shape[-1] // split))
+                   for w in weights]
+        for n, w, pl in zip(names, weights, w_pls):
+            if pl[t].is_shard():
+                if w.shape[-1] % mesh.size(t):
+                    note_whole(n)
+                    pl[t] = Replicate()
+                else:
+                    pl[t] = Shard(w.ndim - 1)
+    if any(pl[t].is_shard() and pl[t].dim != w.ndim - 1
+           for pl, w in zip(w_pls, weights)):
+        raise ValueError("columns: a weight is cut over the mesh other than "
+                         "on its output dimension")
+    cut = [pl[t].is_shard() for pl in w_pls]
+    group = mesh.get_group(ctx.tp_axis)
+
+    def local(xl, *ws):
+        xc = comm.copy_to(xl, group, "tp_copy") if any(cut) else xl
+        outs = []
+        for w, c in zip(ws, cut):
+            y = (xc if c else xl) @ (w.reshape(w.shape[0], -1) if split > 1
+                                     else w)
+            outs.extend(torch.chunk(y, split, dim=-1) if split > 1 else [y])
+        return tuple(outs)
+
+    out_pls = []
+    for c in cut:
+        pl = list(x_pls)
+        pl[t] = Shard(x.ndim - 1) if c else Replicate()
+        out_pls.extend([pl] * split)
+    grads = [x_pls] + [_grad_placements(pl, x_pls, t) for pl in w_pls]
+    return list(on_placements(local, mesh, [x_pls] + w_pls, out_pls,
+                              grads)(x, *weights))
+
+
+def rows(ctx, y: torch.Tensor, p: Dict[str, torch.Tensor], name: str,
+         scatter: bool = False) -> torch.Tensor:
+    """``y @ p[name]`` for a row-cut weight (its input dimension cut over
+    "model"); without a context, the plain product.
+
+    With one, the product runs on local shards: ``y`` cut over "model" on
+    its last dimension as the weight's rows are, the weight laid out by
+    ``weight_compute_spec`` (gathered over the data axes), and the ranks'
+    partial sums reduced over "model" at once: an all-reduce
+    (``comm.psum``) into an output whole over "model", or with ``scatter``
+    a reduce-scatter into one cut on its last dimension (the RG-LRU's
+    gates, whose scan runs on lanes cut so)."""
+    return rows_sum(ctx, p, [(y, name)], scatter)
+
+
+def rows_sum(ctx, p: Dict[str, torch.Tensor],
+             terms: Sequence[Tuple[torch.Tensor, str]],
+             scatter: bool = False) -> torch.Tensor:
+    """The sum of ``y @ p[name]`` over ``terms``, each a row-cut product as
+    in ``rows``, with one reduction over "model" for all of them (a
+    block's output and gated-MLP products, which the residual adds: one
+    all-reduce in place of one each).  A term whose activation does not
+    divide "model" runs whole and is added after the reduction."""
+    if ctx is None:
+        out = None
+        for y, name in terms:
+            o = y @ p[name]
+            out = o if out is None else out + o
+        return out
+    from repro_torch.parallel import comm
+    mesh, t = ctx.mesh, _tp_dim(ctx)
+    ins, in_pls, grads, cuts = [], [], [], []
+    for y, name in terms:
+        w = p[name]
+        w_pls = _weight_placements(name, w, mesh)
+        cut = w_pls[t].is_shard()
+        if cut and w_pls[t].dim != 0:
+            raise ValueError("rows: a weight is cut over the mesh other than "
+                             "on its input dimension")
+        y_pls = _act_placements(y, mesh, t, Shard(y.ndim - 1) if cut
+                                else Replicate(), name)
+        cut = cut and y_pls[t].is_shard()
+        if not cut:
+            w_pls[t] = Replicate()
+        ins += [y, w]
+        in_pls += [y_pls, w_pls]
+        grads += [y_pls, _grad_placements(w_pls, y_pls, t)]
+        cuts.append(cut)
+    n_out = p[terms[0][1]].shape[-1]
+    if scatter and all(cuts) and n_out % mesh.size(t):
+        note_whole(terms[0][1])
+    scatter = scatter and all(cuts) and n_out % mesh.size(t) == 0
+    group = mesh.get_group(ctx.tp_axis)
+
+    def local(*args):
+        part = whole = None
+        for i, cut in enumerate(cuts):
+            o = args[2 * i] @ args[2 * i + 1]
+            if cut:
+                part = o if part is None else part + o
+            else:
+                whole = o if whole is None else whole + o
+        if part is not None:
+            part = (comm.reduce_scatter(part, group, -1, "tp_reduce_scatter")
+                    if scatter else comm.psum(part, group, "tp_reduce"))
+        return whole if part is None else (part if whole is None
+                                           else part + whole)
+
+    out_pls = list(in_pls[0])
+    out_pls[t] = Shard(terms[0][0].ndim - 1) if scatter else Replicate()
+    return on_placements(local, mesh, in_pls, out_pls, grads)(*ins)

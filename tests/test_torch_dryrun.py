@@ -8,6 +8,7 @@ the test process.  Traces here use fake CPU tensors (``--device cpu``): a
 CPU-only build cannot run autograd or index a DTensor on fake CUDA
 tensors, and the counts depend on shapes alone."""
 
+import collections
 import dataclasses
 import json
 import math
@@ -424,6 +425,43 @@ for dims in ((8, 1), (2, 4)):
                 _, r = costing.count(torch.mm, xr, wr)
             out["mm_sharded"], out["mm_replicated"] = c.flops, r.flops
             out["kv_heads"] = cfg.n_kv_heads
+
+# a train step of qwen3-8b's and gemma3-1b's smoke configs, unsharded and
+# on the (2, 4) and (2, 2, 2) meshes: every product, the backward's too
+# (their site "-": no model function is on the stack in the backward)
+everything = []
+
+
+class LoggedAll(Logged):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = self.flops
+        out_ = super().__torch_dispatch__(func, types, args, kwargs)
+        name = func._overloadpacket.__name__
+        sites = [f.name for f in traceback.extract_stack()
+                 if "repro_torch/models" in f.filename]
+        if name in ("mm", "bmm") and self.flops > before:
+            everything.append((sites[-1] if sites else "-",
+                               self.flops - before))
+        return out_
+
+
+costing.Counter = LoggedAll
+tshape = ShapeSpec("s", "train", 64, 8)
+for arch in ("qwen3-8b", "gemma3-1b"):
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                               remat="none")
+    everything.clear()
+    dryrun.trace(tcfg, tshape, None, "cpu")
+    res = {"unsharded": everything[:]}
+    for dims, axes in (((2, 4), ("data", "model")),
+                       ((2, 2, 2), ("pod", "data", "model"))):
+        everything.clear()
+        with dryrun.fake_world(8):
+            mesh = dryrun._mesh(dims, axes, "cpu")
+            res[f"{dims}"] = {"products": everything[:0], "total":
+                              dryrun.trace(tcfg, tshape, mesh, "cpu")["flops"]}
+        res[f"{dims}"]["products"] = everything[:]
+    out[f"train_{arch}"] = res
 costing.Counter = Logged.__mro__[1]
 
 # a train step on a mesh whose "model" axis cuts the attention's output
@@ -435,7 +473,16 @@ gcfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=1,
 with dryrun.fake_world(256):
     mesh = dryrun._mesh((16, 16), ("data", "model"), "cpu")
     step = dryrun.trace(gcfg, ShapeSpec("s", "train", 64, 16), mesh, "cpu")
-out["uneven_heads_train"] = {"heads": gcfg.n_heads, "flops": step["flops"]}
+out["uneven_heads_train"] = {"heads": gcfg.n_heads, "flops": step["flops"],
+                             "whole": step["whole_over_model"]}
+
+# a prefill whose recurrent cells' heads do not divide "model": xlstm's
+# smoke config (2 heads) on a (2, 4) mesh
+xcfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"), dtype="float32")
+with dryrun.fake_world(8):
+    mesh = dryrun._mesh((2, 4), ("data", "model"), "cpu")
+    out["whole_xlstm"] = dryrun.trace(xcfg, ShapeSpec("s", "prefill", 64, 8),
+                                      mesh, "cpu")["whole_over_model"]
 
 # the sLSTM fit from two, four and eight chunks: a prefill on a (2, 2)
 # mesh to S = 512 (chunk 32), a train step on one device to S = 256
@@ -455,8 +502,10 @@ json.dump(out, sys.stdout)
 
 
 # an sLSTM fit whose check is not exact: a train step of xlstm's smoke
-# config on a (2, 2) mesh to S = 64 (chunk 4), through ``run_cell``, and
-# the same cell traced at full length (``--no-correct``)
+# config on a (2, 2) mesh to S = 64 (chunk 4), through ``run_cell``, with
+# one FLOP added to the trace at the shortest fit length (the sharded
+# program's counts are affine in S, so the check would hold), and the same
+# cell traced at full length (``--no-correct``)
 _FALLBACK = r"""
 import dataclasses, json, sys
 import torch
@@ -464,6 +513,18 @@ torch.set_num_threads(1)
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.shapes import ShapeSpec
+
+traced = dryrun.trace
+
+
+def off_the_line(cfg, shape, mesh=None, device="cuda"):
+    r = traced(cfg, shape, mesh, device)
+    if shape.seq == dryrun.fit_lengths(cfg)[0]:
+        r["flops"] += 1.0
+    return r
+
+
+dryrun.trace = off_the_line
 
 xcfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"), dtype="float32",
                            mlstm_chunk=4)
@@ -532,15 +593,16 @@ def test_per_device_parameter_bytes_match_reference(ranks, arch, multi):
 def test_counts_are_per_device(ranks):
     """Every product of qwen3-8b's smoke prefill counts exactly its share
     of the unsharded count, product by product.  On a (8, 1) mesh (data
-    parallel) each counts 1/8.  On a (2, 4) mesh each projection and FFN
-    product that the rules cut over both axes counts 1/8, the attention
-    products 1/2 (the rules leave the heads whole, since the two KV heads
-    do not divide by 4: cut by batch only), and the first layer's FFN gate
-    and up products 1/2: their input arrives as a partial sum over
-    "model" (the attention's row-cut output product), and DTensor runs
-    them whole on each "model" rank rather than take the sum first
-    (replicated work, ROADMAP §3).  A product of hand-placed shards counts
-    1/8 of the global product and a replicated one counts it whole."""
+    parallel) each counts 1/8.  On a (2, 4) mesh each also counts 1/8: the
+    projection and FFN products that the rules cut over both axes run on
+    local shards (the layer's FSDP-cut weights gathered over "data", its
+    row-cut products reduced over "model" before the residual add, so
+    that the first layer's FFN gate and up take whole inputs and count
+    1/8, not 1/2), and the attention products are cut by batch and by
+    heads (the two KV heads, which do not divide by 4, repeated to the
+    four query heads, as the reference's program cuts them).  A product
+    of hand-placed shards counts 1/8 of the global product and a
+    replicated one counts it whole."""
     whole = ranks["unsharded"]
     assert set(whole) == {"mm", "bmm"}
     assert {k: v * 8 for k, v in ranks["(8, 1)"].items()} == whole
@@ -552,15 +614,45 @@ def test_counts_are_per_device(ranks):
         ffn = 0
         for (site, f), (_, want) in zip(got, unsharded):
             share = 8
-            if dims == "(2, 4)" and site.startswith("_gqa"):
-                share = 2
             if site == "dense_ffn":
                 ffn += 1
                 if dims == "(2, 4)" and ffn in (1, 2):
-                    share = 2          # layer 0's gate and up: replicated
+                    share = 8          # layer 0's gate and up: cut
             assert f * share == want, (dims, site, ffn)
     assert ranks["mm_sharded"] == 2 * 64 * 32 * 48 / 8
     assert ranks["mm_replicated"] == 2 * 64 * 32 * 48
+
+
+#: the model functions whose products multiply by the weights that the
+#: rules cut over both axes (the attention's own products are not among them)
+_WEIGHT_SITES = ("qkv_project", "apply_layer_train", "dense_ffn", "logits_fn")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-1b"])
+def test_train_step_counts_are_per_device(ranks, arch):
+    """A smoke train step on the (2, 4) and the (2, 2, 2) "pod" mesh: each
+    forward product of a weight that the rules cut over both axes counts
+    1/8 of the unsharded count, on either mesh ("pod" cuts the batch as
+    "data" does).  For qwen3-8b every product, forward and backward,
+    counts 1/8, and the two meshes' counts are equal.  gemma3-1b's two
+    heads do not divide the (2, 4) mesh's 4 "model" ranks: its attention
+    is cut there by query positions, which a rank's share of the causal
+    keys makes other than 1/8."""
+    got = ranks[f"train_{arch}"]
+    whole = collections.defaultdict(list)
+    for site, f in got["unsharded"]:
+        whole[site].append(f)
+    assert set(_WEIGHT_SITES) <= set(whole)
+    for dims in ("(2, 4)", "(2, 2, 2)"):
+        mine = collections.defaultdict(list)
+        for site, f in got[dims]["products"]:
+            mine[site].append(f)
+        sites = set(whole) if arch == "qwen3-8b" else set(_WEIGHT_SITES)
+        for site in sites:
+            assert [f * 8 for f in mine[site]] == whole[site], (dims, site)
+    if arch == "qwen3-8b":
+        assert got["(2, 4)"]["total"] == got["(2, 2, 2)"]["total"] == sum(
+            f for _, f in got["unsharded"]) / 8
 
 
 def test_train_step_shards_when_heads_do_not_divide(ranks):
@@ -571,6 +663,16 @@ def test_train_step_shards_when_heads_do_not_divide(ranks):
     propagation: "Cannot unflatten unevenly sharded tensor")."""
     got = ranks["uneven_heads_train"]
     assert got["heads"] % 16 and got["flops"] > 0
+
+
+def test_trace_records_what_runs_whole_over_model(ranks):
+    """xlstm's smoke prefill on a (2, 4) mesh: its 2 heads do not divide
+    the 4 "model" ranks, so each of its three mLSTM cells and its sLSTM
+    cell runs whole on every "model" rank, and the trace counts them by
+    site; gemma3-1b's step on 16 x 16, whose heads are cut by query
+    positions and whose products all divide, records none."""
+    assert ranks["whole_xlstm"] == {"mlstm": 3, "slstm": 1}
+    assert ranks["uneven_heads_train"]["whole"] == {}
 
 
 @pytest.mark.parametrize("kind", ["prefill", "train"])
@@ -596,10 +698,10 @@ def test_slstm_fit_equals_the_direct_trace(ranks, kind):
 
 
 def test_slstm_fit_that_is_not_exact_gives_the_full_trace(fallback):
-    """A train step on a mesh is only piecewise affine in S: DTensor picks
-    its layouts by size.  Where the fit's check is not exact, the record
-    holds the check, says so, and counts the cell traced at full length:
-    the counts of ``--no-correct``, not the fit's."""
+    """Where the fit's check is not exact (here one FLOP off the line at
+    the shortest length), the record holds the check, says so, and counts
+    the cell traced at full length: the counts of ``--no-correct``, not
+    the fit's."""
     rec, whole = fallback["fit"], fallback["whole"]
     assert rec["status"] == whole["status"] == "ok"
     assert any(rec["fit_check"]["deviation"].values())
@@ -630,3 +732,23 @@ def test_cli_writes_an_ok_record(tmp_path):
     assert rec["corrected"]["flops"] > 0
     assert rec["memory"]["total_hbm_bytes"] > rec["memory"][
         "argument_size_in_bytes"] > 0
+
+
+def test_cli_traces_a_sharded_rglru_prefill(tmp_path):
+    """recurrentgemma-2b's smoke prefill on a (2, 4) mesh through the CLI:
+    the RG-LRU gates come out of a reduce-scatter over "model" cut by
+    lanes, and the kernel's operator (its fake implementation) takes them
+    only contiguous."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "recurrentgemma-2b", "--shape", "prefill_32k", "--smoke",
+         "--mesh-shape", "2,4", "--seq", "64", "--batch", "8", "--device",
+         "cpu", "--out", str(tmp_path)], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    rec = json.loads((tmp_path / "recurrentgemma-2b__prefill_32k__mesh2x4"
+                      ".json").read_text())
+    assert rec["status"] == "ok"
+    assert rec["corrected"]["kernels"]["rglru"] > 0
+    assert rec["corrected"]["collectives"]["reduce-scatter_count"] > 0

@@ -26,8 +26,12 @@ COPIED = [f"core/{m}.py" for m in (
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
 
+#: the port's runnable examples, beside the reference's
+EXAMPLES = ("torch_serve_replicated", "torch_train_replicated")
+
 _CHECK_IMPORTS = r"""
 import importlib, importlib.abc, pkgutil, sys
+EXAMPLES = %r
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -43,15 +47,22 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util
+for ex in EXAMPLES:
+    spec = importlib.util.spec_from_file_location(ex, f"examples/{ex}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.startswith(("jax", "ml_dtypes")) or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
 print(len(names))
-"""
+""" % (EXAMPLES,)
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
+    """Every module of the port (``launch/roofline.py`` among them),
+    ``chip_smoke.py`` and the examples, imported with JAX, ``ml_dtypes``
+    and ``repro`` refused."""
     env = dict(os.environ, PYTHONPATH=f"{SRC}{os.pathsep}{ROOT}")
     res = subprocess.run([sys.executable, "-c", _CHECK_IMPORTS], env=env,
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -75,3 +86,20 @@ def test_protocol_copy_matches_original(rel):
     if rel == "core/crypto.py":
         expected, copy = _without_attest_batch(expected), _without_attest_batch(copy)
     assert copy == expected
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_example_runs_on_the_card_unless_asked(example):
+    """Without ``--device`` an example runs on the CUDA device and, where
+    there is none, stops; it does not fall back to the CPU."""
+    import importlib.util
+
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    spec = importlib.util.spec_from_file_location(
+        example, ROOT / "examples" / f"{example}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])

@@ -7,7 +7,8 @@
 * On 8 gloo ranks (``tests/torch_ranks.py``, spawned once for the module):
   sharded losses on the (2, 4) mesh against JAX's jitted *unsharded* loss
   (the JAX package's own sharded path does not run on this JAX, ROADMAP
-  §3), with ``fsdp_gather`` and ``attn_head_shard`` off and on; sharded
+  §3), with ``fsdp_gather`` and ``attn_head_shard`` off and on (only the
+  second changes the port's program: K/V repeated to H heads); sharded
   train steps against the port's unsharded step; AdamW on placed leaves
   bit for bit; digests of every placement kind; the pod-major layout;
   greedy serving with caches laid out by ``cache_pspecs``.
@@ -277,3 +278,91 @@ def test_pod_major_local_shards(ranks):
 def test_sharded_serving_gives_unsharded_tokens(arch, ranks):
     sharded, whole = ranks[2]["serve"][arch]
     assert torch.equal(sharded, whole)
+
+
+# ---------------------------------------------------------------------------
+# Per-device work against the reference's compiled program
+# ---------------------------------------------------------------------------
+#: the smoke cells held against XLA: (kind, S, global batch) on a (2, 4)
+#: mesh, S at most one attention query chunk (the reference's
+#: ``full_attention_chunked`` scans its chunks, and XLA counts a loop body
+#: once)
+_SMALL_CELLS = [(arch, kind) for arch in ("qwen3-8b", "gemma3-1b")
+                for kind in ("train", "prefill")]
+_SMALL_S, _SMALL_B = 256, 16
+
+_JAX_SMALL = r"""
+import dataclasses, json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax
+from jax.sharding import AxisType
+from repro.configs import get_smoke_config
+from repro.launch import dryrun, shapes
+
+dryrun.make_production_mesh = lambda multi_pod=False: jax.make_mesh(
+    (2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+out = {}
+for arch, kind in CELLS:
+    spec = shapes.ShapeSpec(kind + "_s", kind, S, B)
+    shapes.SHAPES[spec.name] = dryrun.SHAPES[spec.name] = spec
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    rec = dryrun.run_cell(arch, spec.name, False, cfg=cfg, save=False)
+    out[f"{arch}/{kind}"] = rec["corrected"]["flops"]
+json.dump(out, sys.stdout)
+"""
+
+_PORT_SMALL = r"""
+import dataclasses, json, sys
+import torch
+torch.set_num_threads(2)
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.shapes import ShapeSpec
+
+out = {}
+for arch, kind in CELLS:
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    rec = dryrun.run_cell(arch, "train_4k", False, cfg=cfg, save=False,
+                          device="cpu", mesh_shape=((2, 4), ("data", "model")),
+                          shape=ShapeSpec("s", kind, S, B))
+    out[f"{arch}/{kind}"] = rec["corrected"]["flops"]
+json.dump(out, sys.stdout)
+"""
+
+
+@pytest.fixture(scope="module")
+def small_counts():
+    """The reference's compiled FLOPs a device (XLA on 8 CPU devices, a
+    (2, 4) mesh of ``Auto`` axes, as ``tools/dryrun_compare.py`` runs it)
+    and the port's traced ones, for ``_SMALL_CELLS``."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    head = f"CELLS = {_SMALL_CELLS!r}\nS, B = {_SMALL_S}, {_SMALL_B}\n"
+    procs = [subprocess.Popen([sys.executable, "-c", head + prog], env=env,
+                              cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for prog in (_JAX_SMALL, _PORT_SMALL)]
+    got = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
+        got.append(json.loads(out.strip().splitlines()[-1]))
+    return got
+
+
+@pytest.mark.parametrize("arch,kind", _SMALL_CELLS)
+def test_per_device_flops_at_most_the_compiled_reference(arch, kind,
+                                                         small_counts):
+    """On a (2, 4) mesh the port's FLOPs a device (its products and
+    attention) are at most XLA's count of the reference's compiled program
+    (which adds the elementwise operations): the sharded program runs no
+    product whole that the reference cuts."""
+    jax_flops, port_flops = small_counts
+    key = f"{arch}/{kind}"
+    assert 0 < port_flops[key] <= jax_flops[key], (port_flops[key],
+                                                  jax_flops[key])

@@ -68,6 +68,10 @@ def _model(cfg, params):
 
 
 def _cfg(arch, flags=False):
+    """``arch``'s smoke config in fp32; with ``flags``, ``fsdp_gather`` and
+    ``attn_head_shard`` set.  Only ``attn_head_shard`` changes the port's
+    program (K/V repeated to H heads): ``fsdp_gather`` is the reference's
+    field, and the port's products gather every weight in any case."""
     from repro_torch.configs import get_smoke_config
     return dataclasses.replace(get_smoke_config(arch), dtype="float32",
                                fsdp_gather=flags, attn_head_shard=flags)

@@ -58,8 +58,9 @@ def main() -> None:
                    if r is None or r["status"] != "ok"]
             other += [f"{arch} {shape} {m}: "
                       f"{r['status'] if r else 'missing'}"
-                      + (f" ({r['reason']})" if r and r["status"] == "error"
-                         else "") for m, r in bad]
+                      + (f" ({r.get('reason') or r.get('error', '')})"
+                         if r and r["status"] == "error" else "")
+                      for m, r in bad]
             if len(bad) == 2:
                 continue
             a, b = (_numbers(r) if r is not None and r["status"] == "ok"
