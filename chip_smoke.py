@@ -72,7 +72,8 @@
    bit against its plain version on qwen3-moe's largest stacked expert
    leaf (more than 2^32 words), and timed there; llama4-scout's prefill
    from (1, 384, D) embeddings equal to ``embed(tokens)`` against the
-   prefill from those tokens, logits and caches bit for bit;
+   prefill from those tokens, logits and caches bit for bit; the same
+   check for musicgen-large and chameleon-34b at full width, 4 layers each;
 11. runs the multi-device layer (``parallel.sharding``, ``launch.mesh``,
    ``parallel.pipeline``, ``checkpoint.reshard``) on a mesh of one rank
    through NCCL (the script runs on one card, and NCCL takes one rank a
@@ -122,9 +123,27 @@
    whose FLOPs differ most; (d) ``launch/roofline.py`` over (c)'s records
    on fake CUDA tensors: each cell's compute, memory and collective terms
    at the H100's published rates and links, finite, the bound their
-   largest.
+   largest;
+13. serves gemma3-1b at full width and depth (bf16, random weights from
+   seed 0, one weight copy attested by the fingerprint kernel, one
+   ``GreedyDecoder`` shared by every replica) as one of three apps on one
+   disaggregated-memory substrate of two pools (``scenario.run_scenario``):
+   the token server (7 requests of four sessions, roofline-costed on the
+   card's profile), a closed-loop KV store and an open-loop matching
+   engine, under a fault schedule: a token-server replica crashed while its
+   decode engine is busy and recovered, a memory node crashed and its pool
+   reconfigured, another token-server replica crashed and replaced between
+   turns (the joiner from the same app factory adopts the sessions through
+   the pools).  It checks that every app's replicas agree (the recovered
+   one and the joiner included), that no budget overran, that every reply
+   equals a direct decode of its history, that the path launched the SWA
+   kernel once per window layer of every model call and the fingerprint
+   once per leaf, and nothing else; then runs the same requests through
+   the unreplicated baseline (same tokens) and prints each request's
+   virtual µs both ways and their difference, the consensus cost at equal
+   serial service time.
 
-Any failure raises.  ``--only 3,12`` runs the build and those phases
+Any failure raises.  ``--only 3,10,12,13`` runs the build and those phases
 alone and prints no result.  The line before the last is a JSON object of
 per-kernel numbers (a kernel timed at several shapes lists them under
 ``shapes``; its top-level numbers are those of the first).  Each time is
@@ -173,7 +192,13 @@ try:
     from repro_torch.checkpoint import (load_checkpoint, reshard,  # noqa: E402
                                         save_checkpoint)
     from repro_torch.configs import get_config  # noqa: E402
+    from repro_torch.apps.kvstore import KVStoreApp, set_req  # noqa: E402
+    from repro_torch.apps.matching import (MatchingEngineApp,  # noqa: E402
+                                           order_req)
+    from repro_torch.baselines.unreplicated import (  # noqa: E402
+        build_unreplicated)
     from repro_torch.core import crypto  # noqa: E402
+    from repro_torch.core.consensus import ConsensusConfig  # noqa: E402
     from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
     from repro_torch.kernels import cuda, ops, rglru, work  # noqa: E402
     from repro_torch.kernels.fingerprint import (fingerprint_cuda,  # noqa: E402
@@ -199,7 +224,13 @@ try:
     from repro_torch.runtime.attest import fingerprint_tree  # noqa: E402
     from repro_torch.runtime.steps import (make_prefill,  # noqa: E402
                                            make_serve_step, make_train_step)
+    from repro_torch.runtime.server import TokenServerApp  # noqa: E402
     from repro_torch.runtime.trainer import ReplicatedTrainer  # noqa: E402
+    from repro_torch.scenario import (AppSpec, ScenarioSpec,  # noqa: E402
+                                      Workload, run_scenario)
+    from repro_torch.serve import ServingCostModel  # noqa: E402
+    from repro_torch.sim.faults import FaultSchedule  # noqa: E402
+    from repro_torch.workloads import llm_session_trace  # noqa: E402
 except ImportError as e:
     sys.exit(f"chip_smoke: the port is not importable from {ROOT / 'src'}: {e}")
 
@@ -231,6 +262,8 @@ XLSTM_BATCH, XLSTM_SEQ = 2, 512
 # phase 10: the MoE archs' depth cut so that one model's bf16 weights and
 # its init's fp32 draw of one stacked expert leaf fit the card
 MOE_LAYERS = 8
+# phase 10's frontend checks: musicgen-large's and chameleon-34b's depth
+FRONTEND_LAYERS = 4
 # the card's memory: a path's peak allocation must stay below it
 CARD_BYTES = 80e9
 
@@ -1331,9 +1364,10 @@ def check_large_leaf(card_line: str, fp_row: dict):
 
 
 def check_frontend(card_line: str):
-    """``check_model`` of llama4-scout's path: a prefill from (1, 384, D)
-    embeddings equal to ``embed(tokens)`` gives the logits and caches of
-    the prefill from those tokens, bit for bit."""
+    """``check_model`` of llama4-scout's path (and of each arch of
+    ``check_frontends``): a prefill from (1, 384, D) embeddings equal to
+    ``embed(tokens)`` gives the logits and caches of the prefill from those
+    tokens, bit for bit."""
     def check_fn(model: Transformer, max_seq: int) -> None:
         toks = torch.randint(0, model.cfg.vocab, (1, 384),
                              generator=torch.Generator().manual_seed(4))
@@ -1345,12 +1379,34 @@ def check_frontend(card_line: str):
             torch.equal(a[k], b[k])
             for ga, gb in zip(caches_tok, caches_emb)
             for a, b in zip(ga, gb) for k in a)
-        check(same, "llama4-scout: the prefill from embeddings differs from "
-                    "the prefill from tokens")
+        check(same, f"{model.cfg.name}: the prefill from embeddings "
+                    f"differs from the prefill from tokens")
         print(f"    {model.cfg.name}: prefill from {tuple(emb.shape)} "
               f"{str(emb.dtype)[6:]} embeddings == prefill from the tokens "
               f"(logits and caches bit for bit) [{card_line}]")
     return check_fn
+
+
+def check_frontends(card_line: str) -> None:
+    """The frontend archs that no phase serves, musicgen-large (audio) and
+    chameleon-34b (early-fusion VLM), at full width, cut to
+    ``FRONTEND_LAYERS`` layers (bf16, random weights from seed 0): their
+    prefill from embeddings against their prefill from tokens, as
+    llama4-scout's (``check_frontend``)."""
+    for arch in ("musicgen-large", "chameleon-34b"):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=FRONTEND_LAYERS,
+                                  blocks=default_blocks(FRONTEND_LAYERS))
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        check_frontend(card_line)(model, 384 + 8)
+        print(f"    {arch}: {FRONTEND_LAYERS} of {full.n_layers} layers at "
+              f"full width (frontend {cfg.frontend!r}, "
+              f"{sum(p.numel() for p in model.param_leaves()) / 1e9:.3f} B "
+              f"params) [{card_line}]")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_moe(card_line: str, fp_row: dict) -> dict:
@@ -1367,6 +1423,7 @@ def phase_moe(card_line: str, fp_row: dict) -> dict:
                           layers=MOE_LAYERS, check_model=check_fn, tag="[10]")
         for name, n in got.items():
             launches[name] = launches.get(name, 0) + n
+    check_frontends(card_line)
     print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s "
           f"[{card_line}]")
     return launches
@@ -2029,6 +2086,260 @@ def phase_roofline(card_line: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the served model as one app of a faulted shared-substrate
+# deployment
+# ---------------------------------------------------------------------------
+#: the faults, in virtual µs (tests/test_torch_scenario.py's): tok/r2
+#: crashes while its decode engine runs the first turns' backlog, with no
+#: register operation in flight (a crash swallows the replies to one), and
+#: recovers before the next slot is decided; m1, a memory node of pool0,
+#: crashes and its pool reconfigures; tok/r1 crashes and is replaced
+#: between turns
+CRASH_US, RECOVER_US = 600.0, 1400.0
+MEM_CRASH_US, RECONFIGURE_US = 1000.0, 1800.0
+STOP_US, REPLACE_US = 2800.0, 3000.0
+DEPLOY_APPS = ("tok", "kv", "match")
+
+
+def _pcts(lats) -> tuple:
+    """p50 and p99 as ``tests/golden_scenarios.py`` takes them."""
+    s = sorted(lats)
+    return s[len(s) // 2], s[min(len(s) - 1, int(len(s) * 0.99))]
+
+
+def session_trace(vocab: int) -> list:
+    """Four sessions whose first turns (about 64 prompt tokens) arrive
+    together, then three later turns (about 16): seeded draws, 7 requests,
+    about 8 tokens decoded each."""
+    return llm_session_trace(9, 8_000.0,
+                             session_times=[0.0, 60.0, 120.0, 180.0],
+                             mean_turns=2.0, think_us=4_000.0,
+                             first_prompt_tokens=64, next_prompt_tokens=16,
+                             decode_tokens=8, vocab=vocab)
+
+
+def deployment(decoder, cost_model, trace: list, probe: dict) -> ScenarioSpec:
+    """Three apps on one substrate of two pools (f_m = 1): the token server
+    over ``decoder``, a closed-loop KV store and an open-loop matching
+    engine, under the faults above; ``probe`` receives what tok/r2 holds in
+    flight just before it crashes."""
+    def slow():
+        return ConsensusConfig(t=16, window=16, slow_mode="always",
+                               ctb_fast_enabled=False,
+                               view_timeout_us=20_000.0)
+
+    # the golden token_server scenario's consensus: a roofline-costed
+    # engine needs a progress timer that outlasts its backlog
+    tok_cfg = ConsensusConfig(t=16, window=32, slow_mode="always",
+                              ctb_fast_enabled=False,
+                              view_timeout_us=200_000.0, max_batch=4,
+                              pipeline_depth=4, max_request_bytes=4096)
+
+    def faults(substrate):
+        victim = substrate.clusters["tok"].replicas[2]
+        substrate.sim.at(CRASH_US - 1e-3, lambda: probe.update(
+            engine_slot=victim._exec_inflight,
+            register_ops=len(victim.regs._pending)))
+        return (FaultSchedule()
+                .add(CRASH_US, "crash", "tok/r2")
+                .add(RECOVER_US, "recover", "tok/r2")
+                .add(MEM_CRASH_US, "crash", "m1")
+                .add(RECONFIGURE_US, "reconfigure", ("pool0", "m1"))
+                .add(STOP_US, "crash", "tok/r1")
+                .add(REPLACE_US, "replace_replica", "tok/r1"))
+
+    return ScenarioSpec(
+        n_pools=2, f_m=1, seed=5, faults=faults, drain_us=100_000.0,
+        apps=[
+            AppSpec(name="tok", cfg=tok_cfg,
+                    app=lambda: TokenServerApp(decoder, cost_model=cost_model),
+                    # one client a request: client j's latency is request j's
+                    workload=Workload(kind="trace", trace=trace,
+                                      n_clients=len(trace),
+                                      timeout_us=10_000_000.0)),
+            AppSpec(name="kv", app=KVStoreApp, cfg=slow(),
+                    workload=Workload(kind="closed", n_requests=40,
+                                      timeout_us=10_000_000.0,
+                                      payload_fn=lambda i: set_req(
+                                          b"key%d" % (i % 16),
+                                          b"value%d" % i))),
+            AppSpec(name="match", app=MatchingEngineApp, cfg=slow(),
+                    workload=Workload(kind="open", rate_rps=4_000.0,
+                                      duration_us=6_000.0, seed=7,
+                                      timeout_us=10_000_000.0,
+                                      payload_fn=lambda i: order_req(
+                                          "buy" if i % 2 == 0 else "sell", i,
+                                          100 + (i * 7) % 11 - 5, 10))),
+        ])
+
+
+def run_unreplicated(decoder, cost_model, trace: list) -> list:
+    """The same requests at the same virtual times through the
+    unreplicated baseline (one server, the same serial engine): [(tokens,
+    latency_us)] in trace order."""
+    sim, _server, client = build_unreplicated(
+        lambda: TokenServerApp(decoder, cost_model=cost_model))
+    out = [None] * len(trace)
+    for j, (t, payload) in enumerate(trace):
+        def done(raw, lat, j=j):
+            out[j] = (json.loads(raw.decode())["tokens"], lat)
+        sim.at(t, lambda p=payload, cb=done: client.request(p, cb))
+    check(sim.run_until(lambda: all(o is not None for o in out),
+                        timeout=10_000_000.0),
+          "the unreplicated baseline did not answer every request")
+    return out
+
+
+def replies_from_history(trace: list, hist: dict) -> list:
+    """Each request's (session, history before its reply, reply tokens)
+    read from the agreed session histories: a session's turns are its
+    prompts, each followed by its reply."""
+    at = {sid: 0 for sid in hist}
+    out = []
+    for _t, payload in trace:
+        msg = json.loads(payload)
+        sid, prompt, n = msg["session"], msg["prompt"], msg["n"]
+        full = list(hist[sid])
+        check(full[at[sid]:at[sid] + len(prompt)] == prompt,
+              f"session {sid}: the agreed history does not hold its prompt")
+        at[sid] += len(prompt)
+        out.append((sid, full[:at[sid]], full[at[sid]:at[sid] + n]))
+        at[sid] += n
+    check(all(at[sid] == len(h) for sid, h in hist.items()),
+          "the agreed histories hold more than the trace's turns")
+    return out
+
+
+def phase_deployment(card_line: str) -> dict:
+    """Phase 13: gemma3-1b at full width and depth (bf16, seed 0) as the
+    token-server app of a faulted three-app deployment on one substrate
+    (``scenario.run_scenario``), then the same requests through the
+    unreplicated baseline; returns the launch counts of both paths."""
+    t_phase = time.perf_counter()
+    arch = "gemma3-1b"
+    cfg = get_config(arch)
+    trace = session_trace(cfg.vocab)
+    # the longest session history the decoder is called on, replays
+    # included: all of a session's prompts and replies
+    longest: dict = {}
+    for _t, payload in trace:
+        msg = json.loads(payload)
+        longest[msg["session"]] = (longest.get(msg["session"], 0)
+                                   + len(msg["prompt"]) + msg["n"])
+    max_seq = max(longest.values()) + 8
+    n_window = sum(spec.window is not None for spec in cfg.layer_list())
+    serve.set_deterministic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    decoder, digest = serve.build_decoder(cfg, torch.device("cuda"), max_seq)
+    cm = ServingCostModel.from_arch(arch)
+    probe: dict = {}
+    t0 = time.perf_counter()
+    res = run_scenario(deployment(decoder, cm, trace, probe))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    calls = len(decoder.timings)
+    peak = torch.cuda.max_memory_allocated()
+
+    n_leaves = len(list(decoder.model.param_leaves()))
+    expect = {"fingerprint": n_leaves, "swa": n_window * calls}
+    check({k: n for k, n in launches.items() if n} == expect,
+          f"{arch} deployment launched {launches}, expected {expect} "
+          f"({calls} model calls)")
+    check(not res.budget_overruns, f"budget overruns {res.budget_overruns}")
+    for app in DEPLOY_APPS:
+        ar = res.apps[app]
+        check(ar.completed == ar.issued > 0, f"{app}: {ar.completed} of "
+              f"{ar.issued} requests completed")
+        snaps = {repr(r.app.snapshot()) for r in res.clusters[app].replicas}
+        check(len(snaps) == 1, f"{app}: replica snapshots differ")
+    tok = res.clusters["tok"]
+    check([r.pid for r in tok.replicas] == ["tok/r0", "tok/r3", "tok/r2"]
+          and all(r.membership.epoch == 1 and not r.joining
+                  and not r.crashed for r in tok.replicas),
+          f"tok replicas {[(r.pid, r.membership.epoch) for r in tok.replicas]}")
+    check(probe.get("engine_slot") is not None
+          and probe.get("register_ops") == 0,
+          f"tok/r2 was not crashed with a busy engine alone: {probe}")
+    took = [action for _t, action, _x in res.injector.log]
+    n_replaced, n_reconf = took.count("replace_replica"), took.count(
+        "reconfigure")
+    check(n_replaced >= 1 and n_reconf >= 1,
+          f"faults that took effect: {res.injector.log}, skipped "
+          f"{res.injector.skipped}")
+
+    # every reply equals the decoder called directly on the same history
+    replies = replies_from_history(trace, dict(tok.replicas[0].app.snapshot()))
+    check(all(decoder(sid, prior, len(toks)) == toks
+              for sid, prior, toks in replies),
+          f"{arch}: a reply differs from a direct decode of its history")
+
+    # the unreplicated baseline on the same requests, its launches counted
+    ops.reset_launches()
+    calls_before = len(decoder.timings)
+    t0 = time.perf_counter()
+    base = run_unreplicated(decoder, cm, trace)
+    torch.cuda.synchronize()
+    base_wall_s = time.perf_counter() - t0
+    base_calls = len(decoder.timings) - calls_before
+    base_launches = dict(ops.launches)
+    check({k: n for k, n in base_launches.items() if n}
+          == {"swa": n_window * base_calls},
+          f"{arch} baseline launched {base_launches} ({base_calls} calls)")
+    check([toks for toks, _lat in base] == [r[2] for r in replies],
+          f"{arch}: the unreplicated baseline's tokens differ")
+
+    replicated = [c.latencies[0] for c in tok.clients]
+    unrepl = [lat for _toks, lat in base]
+    diff = [r - u for r, u in zip(replicated, unrepl)]
+    for j, ((_t, payload), r, u) in enumerate(zip(trace, replicated, unrepl)):
+        msg = json.loads(payload)
+        print(f"    [13] request {j} {msg['session']} ({len(msg['prompt'])} "
+              f"prompt, {msg['n']} decoded): replicated {r:.3f} us, "
+              f"unreplicated {u:.3f} us, consensus {r - u:.3f} us (virtual) "
+              f"[{card_line}]")
+    for name, lats in (("replicated", replicated), ("unreplicated", unrepl),
+                       ("consensus (difference)", diff)):
+        p50, p99 = _pcts(lats)
+        print(f"    [13] tok {name}: p50 {p50:.3f} us, p99 {p99:.3f} us "
+              f"(virtual) [{card_line}]")
+    for app in DEPLOY_APPS:
+        p50, p99 = _pcts(res.apps[app].latencies)
+        print(f"    [13] app {app}: {res.apps[app].completed} requests, p50 "
+              f"{p50:.3f} us, p99 {p99:.3f} us (virtual), memory "
+              f"{res.apps[app].memory_by_pool} [{card_line}]")
+    prompts, prefill_s, decode_s = zip(*decoder.timings)
+    steps = [json.loads(payload)["n"] - 1 for _t, payload in trace]
+    print(f"    [13] model calls: median prefill "
+          f"{np.median(prefill_s) * 1e3:.1f} ms (histories of "
+          f"{min(prompts)}–{max(prompts)} tokens), median decode "
+          f"{np.median(decode_s) * 1e3:.1f} ms a call ({min(steps)}–"
+          f"{max(steps)} steps) [{card_line}]")
+    print(f"    [13] wall: deployment {wall_s:.2f} s "
+          f"({wall_s * 1e3 / len(trace):.1f} ms a request, {calls} model "
+          f"calls), unreplicated {base_wall_s:.2f} s "
+          f"({base_wall_s * 1e3 / len(trace):.1f} ms a request, {base_calls} "
+          f"model calls); peak allocated {peak / 1e9:.2f} GB [{card_line}]")
+    print(f"[13] {arch} full depth bf16 (weights {digest:#010x}) served as "
+          f"one of three apps on one substrate: {len(trace)} requests, "
+          f"faults {res.injector.log}, replicas identical (recovered tok/r2 "
+          f"and joiner tok/r3 included), {n_replaced} replace_replica and "
+          f"{n_reconf} reconfigure took effect, tokens == direct decode == "
+          f"unreplicated; launches {expect} deployed, "
+          f"{ {k: n for k, n in base_launches.items() if n} } unreplicated; "
+          f"{res.msgs_sent} messages, {res.bytes_sent} bytes; took "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    del res, decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) + base_launches.get(k, 0)
+            for k in set(launches) | set(base_launches)}
+
+
 def file_digest(path: Path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -2040,8 +2351,8 @@ def file_digest(path: Path) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None,
-                    help="comma-separated phases to run (3, 12), after the "
-                         "build; a partial run prints no result")
+                    help="comma-separated phases to run (3, 10, 12, 13), "
+                         "after the build; a partial run prints no result")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2070,8 +2381,12 @@ def run_only(card_line: str, phases) -> int:
     """Some phases alone (for a short run); prints no result."""
     if "3" in phases:
         phase_swa()
+    if "10" in phases:
+        phase_moe(card_line, {"shapes": []})
     if "12" in phases:
         phase_costing(card_line, start_dryruns())
+    if "13" in phases:
+        phase_deployment(card_line)
     return 0
 
 
@@ -2112,6 +2427,8 @@ def run_all(card_line: str, t_start: float) -> int:
     for name, n in phase_moe(card_line, fp).items():
         launches[name] += n
     for name, n in phase_mesh(card_line).items():
+        launches[name] += n
+    for name, n in phase_deployment(card_line).items():
         launches[name] += n
     check(all(n > 0 for n in launches.values()),
           f"a kernel was never launched on the main paths: {launches}")

@@ -1,3 +1,7 @@
-"""Replicated applications: the matching engine (``apps/matching.py``, a
-verbatim copy of ``repro.apps.matching``), whose orders
-``workloads/matching.py`` makes."""
+"""Replicated applications (§7: Flip, Memcached/Redis-style KV, Liquibook)."""
+
+from repro_torch.apps.flip import FlipApp
+from repro_torch.apps.kvstore import KVStoreApp
+from repro_torch.apps.matching import MatchingEngineApp
+
+__all__ = ["FlipApp", "KVStoreApp", "MatchingEngineApp"]

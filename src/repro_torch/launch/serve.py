@@ -75,15 +75,22 @@ class GreedyDecoder:
         return out[:n]
 
 
-def build_server(cfg: ModelConfig, device: torch.device, max_seq: int,
-                 seed: int = 0) -> Tuple[ReplicatedServer, GreedyDecoder, int]:
-    """Random weights from ``torch.Generator(seed)`` on ``device``, their
-    fingerprint, and a 3-replica token server (f = 1, f_m = 1) whose
-    replicas share the one weight copy through a :class:`GreedyDecoder`."""
+def build_decoder(cfg: ModelConfig, device: torch.device, max_seq: int,
+                  seed: int = 0) -> Tuple[GreedyDecoder, int]:
+    """Random weights from ``torch.Generator(seed)`` on ``device`` behind
+    a :class:`GreedyDecoder`, and their fingerprint: the one weight copy
+    that every replica of a token server shares."""
     gen = torch.Generator(device=device).manual_seed(seed)
     model = init_params(cfg, gen, device=device)
     digest = fingerprint_tree(model.param_leaves())
-    decoder = GreedyDecoder(model, max_seq)
+    return GreedyDecoder(model, max_seq), digest
+
+
+def build_server(cfg: ModelConfig, device: torch.device, max_seq: int,
+                 seed: int = 0) -> Tuple[ReplicatedServer, GreedyDecoder, int]:
+    """:func:`build_decoder`'s model and fingerprint, and a 3-replica
+    token server (f = 1, f_m = 1) whose replicas share the decoder."""
+    decoder, digest = build_decoder(cfg, device, max_seq, seed)
     return ReplicatedServer.build(decoder), decoder, digest
 
 

@@ -14,15 +14,21 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
 #: JAX-free modules that the port copies verbatim (imports rewritten): the
-#: protocol, the serving plane, the workload library and the matching
-#: engine whose orders ``workloads/matching.py`` makes
+#: protocol, fault schedules and the scenario runner, the serving plane, the
+#: workload library, the replicated apps, the baselines and the sharded
+#: service
 COPIED = [f"core/{m}.py" for m in (
     "consensus", "smr", "crypto", "ctbcast", "tbcast", "registers", "node",
     "substrate", "health", "membership")] + [
-    "sim/events.py", "sim/net.py", "runtime/server.py", "runtime/trainer.py",
+    "sim/__init__.py", "sim/events.py", "sim/net.py", "sim/faults.py",
+    "scenario.py", "runtime/server.py", "runtime/trainer.py",
     "data/__init__.py", "data/pipeline.py", "serve/__init__.py",
     "serve/plane.py"] + [f"workloads/{m}.py" for m in (
-    "__init__", "arrivals", "llm", "matching")] + ["apps/matching.py"]
+    "__init__", "arrivals", "llm", "matching")] + [
+    f"apps/{m}.py" for m in ("__init__", "flip", "kvstore", "matching")] + [
+    f"baselines/{m}.py" for m in (
+        "__init__", "unreplicated", "mu", "minbft", "sgx_counter")] + [
+    f"service/{m}.py" for m in ("__init__", "router", "sharded")]
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)repro(?=[.\s])", re.M)
 
