@@ -1,0 +1,40 @@
+"""On the card, at each cell's own size: the control (the reference in
+fp8, one precision below the configuration's bf16, put in the program's
+place) comes out not correct on three seeds, and so does a training
+cell's planted half-batch fault; the program itself comes out correct.
+A short window at the cell's own load: long enough to finish the mix's
+longest requests.
+
+  PYTHONPATH=src:. python -m pytest -q -m card bench/tests/test_bench_card.py
+"""
+
+import time
+
+import pytest
+
+from bench import harness
+
+CELLS = [c["name"] for c in harness.load_benchmark()["workloads"]]
+SEEDS = (2 ** 31 + 101, 2 ** 31 + 202, 2 ** 31 + 303)
+SECONDS = 15.0
+
+
+def _fails(limits, numbers):
+    return any(v > limits[k] for k, v in numbers.items() if k in limits)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_and_faults_fail_and_the_program_passes(cell, card):
+    bench = harness.load_benchmark()
+    for seed in SEEDS:
+        ctx = harness.Context(bench, cell, seed, SECONDS, False, card,
+                              time.perf_counter(), control=True)
+        out = harness.run_cell(ctx)
+        assert out["correct"], out["checks"]
+        if "control_max_logit_gap" in ctx.info:
+            assert ctx.info["control_max_logit_gap"] > \
+                ctx.limits["max_logit_gap"]
+        else:
+            assert _fails(ctx.limits, ctx.info["control"])
+            assert _fails(ctx.limits, ctx.info["half_batch"])
