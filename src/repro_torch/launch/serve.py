@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.models.common import ModelConfig, Transformer, init_params
 from repro_torch.models.transformer import decode_step, prefill
+from repro_torch.runtime import spans
 from repro_torch.runtime.attest import fingerprint_tree
 from repro_torch.runtime.server import ReplicatedServer
 
@@ -51,7 +52,15 @@ class GreedyDecoder:
     """The token server's ``decode_fn``: greedy prefill of the session's
     history, then ``n`` greedy tokens.  ``timings`` collects, per call, the
     prompt length, the seconds to the first token (prefill) and the seconds
-    of the remaining decode steps."""
+    of the remaining decode steps.
+
+    With spans on (``runtime.spans``) a call is a ``serve.call`` span, its
+    request id ``(session, len(hist))`` shared by every replica's call of
+    one request, holding ``serve.prefill`` (the prefill up to the first
+    token's read) and, a decode step each, ``decode.launch`` (the step and
+    its argmax enqueued) and ``decode.sync`` (the token's read, where the
+    host waits for the device).  ``timings`` and the spans share their
+    clock reads."""
 
     def __init__(self, model: Transformer, max_seq: int):
         self.model = model
@@ -59,19 +68,26 @@ class GreedyDecoder:
         self.timings: List[Tuple[int, float, float]] = []
 
     def __call__(self, session: str, hist: List[int], n: int) -> List[int]:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        call = spans.begin("serve.call", (session, len(hist)), t0)
+        first = spans.begin("serve.prefill", None, t0)
         toks = torch.tensor([hist], dtype=torch.int64,
                             device=self.model.embed.device)
         logits, caches = prefill(self.model, toks, max_seq=self.max_seq)
         tok = torch.argmax(logits, -1)
         out = [int(tok[0])]
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
+        spans.end(first, t1)
         pos = len(hist)
         for i in range(n - 1):
-            logits, caches = decode_step(self.model, caches, tok, pos + i)
-            tok = torch.argmax(logits, -1)
-            out.append(int(tok[0]))
-        self.timings.append((len(hist), t1 - t0, time.perf_counter() - t1))
+            with spans.span("decode.launch"):
+                logits, caches = decode_step(self.model, caches, tok, pos + i)
+                tok = torch.argmax(logits, -1)
+            with spans.span("decode.sync"):
+                out.append(int(tok[0]))
+        t2 = time.perf_counter_ns()
+        spans.end(call, t2)
+        self.timings.append((len(hist), (t1 - t0) / 1e9, (t2 - t1) / 1e9))
         return out[:n]
 
 

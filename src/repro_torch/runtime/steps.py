@@ -24,6 +24,7 @@ from repro_torch.models.transformer import (ShardCtx, decode_step, lm_loss,
                                             prefill)
 from repro_torch.optim.adamw import AdamWConfig, State, adamw_update
 from repro_torch.parallel.sharding import mesh_mode
+from repro_torch.runtime import spans
 from repro_torch.runtime.attest import fingerprint_tree
 
 
@@ -37,7 +38,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     ``inputs``, (B, S) integer tokens or, for a frontend arch, (B, S, D)
     float embeddings, and integer ``targets`` (B, S), on the model's
     device.  With ``ctx`` the gradients are laid out as their parameters
-    before the update, and the loss is the replicated value."""
+    before the update, and the loss is the replicated value.
+
+    With spans on (``runtime.spans``) a step is a ``train.step`` span
+    holding ``train.forward`` (the loss), ``train.backward``,
+    ``train.adamw`` and ``train.attest`` (both digests)."""
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(model: Transformer, opt_state: State,
@@ -46,23 +51,29 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         if model.cfg != cfg:
             raise ValueError(f"the step was built for {cfg.name}, the model "
                              f"is {model.cfg.name}")
+        step = spans.begin("train.step")
         params = list(model.param_leaves())
         model.requires_grad_(True)
         model.zero_grad(set_to_none=True)
         with torch.enable_grad(), mesh_mode(ctx):
-            loss = lm_loss(model, batch["inputs"], batch["targets"], ctx)
-            loss.backward()
+            with spans.span("train.forward"):
+                loss = lm_loss(model, batch["inputs"], batch["targets"], ctx)
+            with spans.span("train.backward"):
+                loss.backward()
         grads = [p.grad for p in params]
         if ctx is not None:
             grads = [g.redistribute(p.device_mesh, p.placements)
                      for p, g in zip(params, grads)]
             loss = loss.full_tensor()
-        opt_state = adamw_update(params, grads, opt_state, opt_cfg)
+        with spans.span("train.adamw"):
+            opt_state = adamw_update(params, grads, opt_state, opt_cfg)
         metrics: Dict[str, object] = {"loss": loss.detach()}
         if cfg.attest:
             # uBFT attestation: replicas CTBcast these (see runtime.trainer)
-            metrics["grad_fp"] = fingerprint_tree(grads)
-            metrics["param_fp"] = fingerprint_tree(params)
+            with spans.span("train.attest"):
+                metrics["grad_fp"] = fingerprint_tree(grads)
+                metrics["param_fp"] = fingerprint_tree(params)
+        spans.end(step)
         return opt_state, metrics
 
     return train_step
