@@ -142,8 +142,18 @@
    the unreplicated baseline (same tokens) and prints each request's
    virtual µs both ways and their difference, the consensus cost at equal
    serial service time.
+14. holds ``GreedyDecoder``'s decode steps, replays of CUDA graphs cut at
+   the routed FFN (``serve.StepGraphs``), against the eager steps: (a) for
+   every arch's smoke config in fp32, three calls, the first past the 16-slot
+   window rings; (b) qwen3-moe-235b-a22b at full width, 8 layers, three
+   requests of 19 prompt tokens and 58 generated: tokens and caches bit for
+   bit, one capture, every decode step a replay; then one call each way
+   under the benchmark's tracer (``bench/trace.py``): the device busy time
+   a decode step within 10% of the eager step's, and the routed FFN's
+   kernels charged to the span around ``moe_ffn``; and each way's
+   untraced time a call.
 
-Any failure raises.  ``--only 3,10,12,13`` runs the build and those phases
+Any failure raises.  ``--only 3,10,12,13,14`` runs the build and those phases
 alone and prints no result.  The line before the last is a JSON object of
 per-kernel numbers (a kernel timed at several shapes lists them under
 ``shapes``; its top-level numbers are those of the first).  Each time is
@@ -191,7 +201,8 @@ from torch.distributed.tensor import DTensor  # noqa: E402
 try:
     from repro_torch.checkpoint import (load_checkpoint, reshard,  # noqa: E402
                                         save_checkpoint)
-    from repro_torch.configs import get_config  # noqa: E402
+    from repro_torch.configs import (get_config,  # noqa: E402
+                                     get_smoke_config, list_archs)
     from repro_torch.apps.kvstore import KVStoreApp, set_req  # noqa: E402
     from repro_torch.apps.matching import (MatchingEngineApp,  # noqa: E402
                                            order_req)
@@ -2340,6 +2351,153 @@ def phase_deployment(card_line: str) -> dict:
             for k in set(launches) | set(base_launches)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the decode step as graphs against the eager step
+# ---------------------------------------------------------------------------
+def eager_decode(model: Transformer, hist: list, n: int, max_seq: int):
+    """The eager greedy decode (``GreedyDecoder``'s loop without graphs):
+    the tokens and the caches it leaves.  ``serve.prefill`` and
+    ``serve.decode_step`` are looked up at the call, as the benchmark's
+    spans wrap them."""
+    toks = torch.tensor([hist], dtype=torch.int64, device="cuda")
+    logits, caches = serve.prefill(model, toks, max_seq=max_seq)
+    tok = torch.argmax(logits, -1)
+    out = [int(tok[0])]
+    for i in range(n - 1):
+        logits, caches = serve.decode_step(model, caches, tok, len(hist) + i)
+        tok = torch.argmax(logits, -1)
+        out.append(int(tok[0]))
+    return out, caches
+
+
+def _cache_leaves(caches) -> list:
+    return [st[k] for group in caches for st in group for k in sorted(st)]
+
+
+def check_graphed(tag: str, model: Transformer, calls: list,
+                  max_seq: int) -> serve.GreedyDecoder:
+    """A fresh decoder's tokens on ``calls`` ((history, n) each) against
+    the eager decode's, and after the last call its static caches against
+    the eager caches, bit for bit; one capture, every step a replay."""
+    decoder = serve.GreedyDecoder(model, max_seq)
+    for hist, n in calls:
+        want, caches = eager_decode(model, hist, n, max_seq)
+        got = decoder("s", hist, n)
+        check(got == want, f"{tag}: graphed tokens {got} against eager {want}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        _cache_leaves(decoder.graphs.caches), _cache_leaves(caches)))
+    check(same, f"{tag}: graphed caches differ from the eager ones")
+    steps = sum(n - 1 for _, n in calls)
+    check(decoder.captures == 1 and decoder.replayed_steps == steps,
+          f"{tag}: captures {decoder.captures}, replayed steps "
+          f"{decoder.replayed_steps} of {steps}")
+    return decoder
+
+
+def traced_call(fn) -> dict:
+    """One call of ``fn`` under the benchmark's tracer (``bench/trace.py``)
+    with its spans around ``prefill`` and the routed FFN, as a ``--trace
+    1`` run of the serving cell puts them."""
+    from bench import trace as bench_trace
+    patches = [("repro_torch.launch.serve", "prefill", "bench.prefill"),
+               ("repro_torch.models.transformer", "moe_ffn", "bench.moe_ffn")]
+    tracer = bench_trace.Tracer(patches, torch.device("cuda"))
+    tracer.start()
+    fn()
+    return tracer.stop()
+
+
+def phase_graphs(card_line: str) -> None:
+    """Phase 14: ``GreedyDecoder``'s decode steps as CUDA graphs cut at the
+    routed FFN (``serve.StepGraphs``) against the eager steps.  (a) Every
+    arch's smoke config in fp32: three calls, the first past the 16-slot
+    window rings.  (b) qwen3-moe-235b-a22b at full width, ``MOE_LAYERS`` layers:
+    three requests of 19 prompt tokens and 58 generated (the serving
+    cell's), tokens and caches bit for bit; then one call each way under
+    the benchmark's tracer: the device busy time a decode step within 10%
+    of the eager step's, and the routed FFN's kernels charged to the span
+    around ``moe_ffn`` (within 10% of the eager call's); and each way's
+    untraced decode rate."""
+    t_phase = time.perf_counter()
+    serve.set_deterministic()
+    for arch in list_archs():
+        # fp32: the tensor-core kernels take no head of the smoke widths
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        calls = [([5, 6, 7, 8, 9], 25), ([3, 1, 4], 4),
+                 ([5, 6, 7, 8, 9, 2, 7], 9)]
+        d = check_graphed(f"[14a] {arch}", model, calls, 40)
+        print(f"[14a] {arch} smoke fp32: graphed tokens and caches equal the "
+              f"eager ones; {len(d.graphs.graphs)} graphs a step, captures "
+              f"{d.captures}, replayed steps {d.replayed_steps}")
+        del model, d
+
+    full = get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS,
+                              blocks=default_blocks(MOE_LAYERS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    rng = np.random.default_rng(0)
+    prompt_len, n, max_seq = 19, 58, 77
+    calls = [(rng.integers(0, cfg.vocab, size=prompt_len).tolist(), n)
+             for _ in range(3)]
+    t0 = time.perf_counter()
+    decoder = check_graphed("[14b] qwen3-moe-235b-a22b", model, calls,
+                            max_seq)
+    print(f"[14b] qwen3-moe-235b-a22b {MOE_LAYERS} of {full.n_layers} "
+          f"layers: graphed tokens and caches equal the eager ones over "
+          f"{len(calls)} x {n - 1} decode steps; {len(decoder.graphs.graphs)} "
+          f"graphs a step, captures {decoder.captures}, replayed steps "
+          f"{decoder.replayed_steps} ({time.perf_counter() - t0:.1f} s with "
+          f"the eager runs) [{card_line}]")
+
+    hist = calls[0][0]
+    seen = {}
+    for way, fn in (("eager", lambda: eager_decode(model, hist, n, max_seq)),
+                    ("graphed", lambda: decoder("s", hist, n))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        call_s = (time.perf_counter() - t) / 3
+        s = traced_call(fn)
+        steps_busy = s["busy_s"] - s["by_span"].get("bench.prefill", 0.0)
+        seen[way] = {"call_s": call_s,
+                     "step_busy_ms": 1e3 * steps_busy / (n - 1),
+                     "moe_ms": 1e3 * s["by_span"].get("bench.moe_ffn", 0.0),
+                     "moe_calls": s["span_count"].get("bench.moe_ffn", 0)}
+        print(f"[14b] {way}: a call (19 + 58 tokens) {1e3 * call_s:.1f} ms "
+              f"untraced ({(n - 1) / call_s:.2f} tokens/s with the prefill); "
+              f"traced: device busy {seen[way]['step_busy_ms']:.3f} ms a "
+              f"decode step, routed FFN {seen[way]['moe_ms']:.1f} ms in "
+              f"{seen[way]['moe_calls']} calls, {s['device_events']} device "
+              f"events, {1e3 * s['window_s']:.1f} ms traced [{card_line}]")
+    e, g = seen["eager"], seen["graphed"]
+    check(g["moe_calls"] == e["moe_calls"] == MOE_LAYERS * n,
+          f"[14b] routed-FFN calls traced: {g['moe_calls']} graphed, "
+          f"{e['moe_calls']} eager, {MOE_LAYERS * n} expected")
+    check(abs(g["step_busy_ms"] / e["step_busy_ms"] - 1) <= 0.10,
+          f"[14b] device busy a step {g['step_busy_ms']:.3f} ms graphed "
+          f"against {e['step_busy_ms']:.3f} eager: the profiler missed "
+          f"the graphs' kernels or they differ")
+    check(g["moe_ms"] > 0 and abs(g["moe_ms"] / e["moe_ms"] - 1) <= 0.10,
+          f"[14b] routed FFN's device time {g['moe_ms']:.1f} ms graphed "
+          f"against {e['moe_ms']:.1f} eager")
+    print(f"[14b] graphed against eager: {e['call_s'] / g['call_s']:.2f}x "
+          f"a call untraced; captures {decoder.captures}, replayed steps "
+          f"{decoder.replayed_steps}")
+    del decoder, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card_line}]")
+
+
 def file_digest(path: Path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -2351,7 +2509,8 @@ def file_digest(path: Path) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None,
-                    help="comma-separated phases to run (3, 10, 12, 13), "
+                    help="comma-separated phases to run (3, 10, 12, 13, "
+                         "14), "
                          "after the build; a partial run prints no result")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2387,6 +2546,8 @@ def run_only(card_line: str, phases) -> int:
         phase_costing(card_line, start_dryruns())
     if "13" in phases:
         phase_deployment(card_line)
+    if "14" in phases:
+        phase_graphs(card_line)
     return 0
 
 
@@ -2430,6 +2591,7 @@ def run_all(card_line: str, t_start: float) -> int:
         launches[name] += n
     for name, n in phase_deployment(card_line).items():
         launches[name] += n
+    phase_graphs(card_line)
     check(all(n > 0 for n in launches.values()),
           f"a kernel was never launched on the main paths: {launches}")
     costs = phase_costing(card_line, started)

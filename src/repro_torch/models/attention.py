@@ -30,7 +30,7 @@ ported from ``repro.models.attention``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch.distributed.tensor import Partial, Replicate
@@ -270,22 +270,31 @@ def _write_pos(pos: torch.Tensor, slot: int, position: int) -> None:
 
 
 def decode_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                     x: torch.Tensor, cache: Cache, position: int, ctx=None
+                     x: torch.Tensor, cache: Cache,
+                     position: Union[int, torch.Tensor], ctx=None
                      ) -> Tuple[torch.Tensor, Cache]:
     """x: (B, 1, D); returns (attention output (B, 1, D), the cache, updated
-    in place).  With a context the cache holds DTensors laid out by
+    in place).  Without a context ``position`` is a 0-d integer tensor on
+    x's device, and the slot, the writes and the mask are worked out from
+    it there: the host reads nothing, so a captured step holds them.  With
+    one it is an int and the cache holds DTensors laid out by
     ``sharding.cache_pspecs``."""
     B = x.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     G = H // KV
-    pos1 = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
+    if ctx is None:
+        pos1 = position.to(torch.int32).expand(B, 1)
+    else:
+        pos1 = torch.full((B, 1), position, dtype=torch.int32,
+                          device=x.device)
     q, k_new, v_new = qkv_project(cfg, p, x, pos1, ctx)
     k, v, pos = cache["k"], cache["v"], cache["pos"]
     slot = position % k.shape[1]
     if ctx is None:
-        k[:, slot] = k_new[:, 0]
-        v[:, slot] = v_new[:, 0]
-        pos[slot] = position
+        slot = slot.reshape(1)
+        k.index_copy_(1, slot, k_new)
+        v.index_copy_(1, slot, v_new)
+        pos.index_copy_(0, slot, pos1[0])
     else:
         _write_slot(k, k_new, slot)
         _write_slot(v, v_new, slot)

@@ -107,8 +107,10 @@ def default_blocks(n_layers: int) -> Tuple:
 def weak_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     """A Python scalar as JAX applies it to an array: a weakly typed scalar,
     rounded to the array's dtype first (torch would keep it in fp32 for a
-    bf16 array)."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    bf16 array).  Made by a fill on the array's device, which rounds as
+    ``torch.tensor`` does and copies nothing from the host, so that a
+    captured step can hold it."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -26,9 +26,10 @@ one, every function runs the single-device code.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -83,12 +84,34 @@ def _layer(stacked, r: int) -> Dict[str, torch.Tensor]:
     return {k: t[r] for k, t in stacked.items()}
 
 
+#: while a decode step is captured (``routed_ffn_cut``), where the
+#: unsharded path's routed-FFN calls go instead of ``moe_ffn``
+_routed_cut: Optional[Callable[..., torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def routed_ffn_cut(fn: Callable[..., torch.Tensor]) -> Iterator[None]:
+    """Inside, each routed-FFN call of the unsharded path is
+    ``fn(cfg, p, h)`` instead of ``moe_ffn(cfg, p, h)``: a decoder that
+    captures its step as graphs (``launch.serve``) closes one graph there
+    and leaves the call to run eagerly between replays."""
+    global _routed_cut
+    before, _routed_cut = _routed_cut, fn
+    try:
+        yield
+    finally:
+        _routed_cut = before
+
+
 def _ffn_part(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               x: torch.Tensor, ctx: Optional[ShardCtx] = None
               ) -> torch.Tensor:
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + (moe_ffn(cfg, p, h, ctx) if cfg.moe is not None
-                else dense_ffn(p, h, ctx))
+    if cfg.moe is None:
+        return x + dense_ffn(p, h, ctx)
+    if _routed_cut is not None and ctx is None:
+        return x + _routed_cut(cfg, p, h)
+    return x + moe_ffn(cfg, p, h, ctx)
 
 
 def _embed_rows(table: torch.Tensor, tokens: torch.Tensor,
@@ -200,7 +223,8 @@ def _apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p, x, positions,
 
 
 def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
-                        cache: Dict[str, torch.Tensor], position: int,
+                        cache: Dict[str, torch.Tensor],
+                        position: Union[int, torch.Tensor],
                         ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """One layer of a decode step.  ``cache`` holds this layer's views into
     the stacked caches; they are updated in place."""
@@ -254,11 +278,20 @@ def prefill(model: Transformer, inputs: torch.Tensor,
 
 @torch.no_grad()
 def decode_step(model: Transformer, caches: Caches, tokens: torch.Tensor,
-                position: int, ctx: Optional[ShardCtx] = None
+                position: Union[int, torch.Tensor],
+                ctx: Optional[ShardCtx] = None
                 ) -> Tuple[torch.Tensor, Caches]:
     """tokens: (B,) integer at global ``position``.  Returns (logits (B, V),
-    caches); the caches are updated in place."""
+    caches); the caches are updated in place.  Without a context
+    ``position`` may be a 0-d integer tensor on the model's device (an int
+    becomes one by a fill): the step then reads nothing back to the host
+    and copies nothing from it, so that it can be captured as a graph and
+    replayed with the position advanced on the device.  With a context it
+    is an int."""
     cfg = model.cfg
+    if ctx is None and not isinstance(position, torch.Tensor):
+        position = torch.full((), position, dtype=torch.int64,
+                              device=tokens.device)
     with sharding.mesh_mode(ctx):
         x = embed(model, tokens[:, None], ctx)
         for (pattern, reps), stacked_g, caches_g in zip(cfg.blocks,
