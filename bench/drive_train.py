@@ -24,7 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from bench import harness, trace, weights
+from bench import arch, harness, trace, weights
 from bench.reference import fingerprint
 from bench.reference import train as ref_train
 from bench.traffic import generator
@@ -81,7 +81,7 @@ def run(ctx: harness.Context) -> Dict:
     ctx.sync()
     # the first gradient as the optimizer got it: mu / (1 - b1) after one
     # step; its norms, and a copy on the host to judge it whole later
-    mu = _by_leaf(models[0], opts[0]["mu"])
+    mu = _by_leaf(m, models[0], opts[0]["mu"])
     prog_first = {k: t.to("cpu", copy=True) for k, t in mu.items()}
     prog_grad = {k: float(torch.linalg.vector_norm(t.float())) / (1.0 - b1)
                  for k, t in mu.items()}
@@ -89,7 +89,7 @@ def run(ctx: harness.Context) -> Dict:
     rt.run_steps(mix["checked_steps"] - 1)
     ctx.sync()
     prog_change = {}
-    for k, t in _by_leaf(models[0], opts[0]["master"]).items():
+    for k, t in _by_leaf(m, models[0], opts[0]["master"]).items():
         p0 = weights.draw(m, ctx.seed, k[0], k[1], dev, torch.float32)
         prog_change[k] = float(torch.linalg.vector_norm(t - p0))
     prog_losses = [losses[0, s] for s in range(mix["checked_steps"])]
@@ -183,14 +183,15 @@ def run(ctx: harness.Context) -> Dict:
     return ref
 
 
-def _by_leaf(model, state: List[torch.Tensor]) -> Dict:
+def _by_leaf(m: Dict, model, state: List[torch.Tensor]) -> Dict:
     """A list in ``param_leaves`` order (an optimizer state) keyed as the
     reference keys its leaves, (name, layer), each stacked leaf cut into
     its layers."""
     out = {}
     for (path, _), t in zip(model.leaf_items(), state):
         if path[0] == "groups":
-            out.update(((path[-1], l), x) for l, x in enumerate(t.unbind(0)))
+            out.update(((path[-1], l), x) for l, x in
+                       zip(arch.layer_index(m, *path[1:3]), t.unbind(0)))
         else:
             out[path[0], -1] = t
     return out

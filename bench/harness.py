@@ -6,7 +6,12 @@ Files found by name, each a file of its own:
 
 * ``configs/<config>.json``: the configuration as run (the port's model
   fields under ``model``; ``smoke`` holds the tiny widths the CPU tests
-  use);
+  use); its layers as ``blocks``, ``[[[<layer>, ...], <reps>], ...]``,
+  a layer a kind or an object of the program's ``LayerSpec`` fields, or
+  as ``pattern``, one pattern repeated over ``n_layers`` (``smoke`` may
+  hold blocks of its own); and ``reference``, the module
+  ``reference/<name>.py`` that checks it (default ``model``, Qwen3's;
+  ``arch.py``);
 * ``traffic/<traffic>.json``: the mix, read by ``traffic/generator.py``;
 * ``metrics/<metric>.py``: one reader a metric, ``read(run) -> float or
   None`` (None: nothing to read, the metric is left out of the line).
@@ -29,7 +34,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from bench import weights
+from bench import arch, weights
 from bench.traffic import generator
 
 BENCH = Path(__file__).resolve().parent
@@ -81,28 +86,34 @@ def read_metric(name: str, run: "Context") -> Optional[float]:
     return mod.read(run)
 
 
+SEAM = ("blocks", "layers", "reference")   # model keys the harness adds
+
+
 def model_fields(config: Dict, smoke: bool) -> Dict:
+    """The model's fields as run, with the keys of ``arch.py``: its
+    ``blocks`` (each layer a dict of ``LayerSpec`` fields), ``layers``
+    and ``reference``."""
     m = dict(config["model"])
     if smoke:
         m.update(config["smoke"])
+    if "blocks" not in m:                # the smoke section's, if any
+        m["blocks"] = config.get("blocks") or [
+            [config["pattern"], m["n_layers"] // len(config["pattern"])]]
+    m["blocks"] = [[[{"kind": e} if isinstance(e, str) else dict(e)
+                     for e in pattern], reps]
+                   for pattern, reps in m["blocks"]]
+    m["layers"] = arch.layers(m)
+    m["reference"] = config.get("reference", arch.DEFAULT)
     return m
 
 
-def program_config(m: Dict, pattern: List[str]):
+def program_config(m: Dict):
     from repro_torch.models.common import LayerSpec, ModelConfig, MoEConfig
-    kw = {k: v for k, v in m.items() if k != "moe"}
-    blocks = ((tuple(LayerSpec(kind) for kind in pattern),
-               m["n_layers"] // len(pattern)),)
+    kw = {k: v for k, v in m.items() if k != "moe" and k not in SEAM}
+    blocks = tuple((tuple(LayerSpec(**e) for e in pattern), reps)
+                   for pattern, reps in m["blocks"])
     return ModelConfig(**kw, blocks=blocks,
                        moe=MoEConfig(**m["moe"]) if m.get("moe") else None)
-
-
-def _layer_index(cfg, path) -> List[int]:
-    """The layers of a stacked leaf ``("groups", g, pos, name)``."""
-    _, g, pos, _ = path
-    offset = sum(len(p) * r for p, r in cfg.blocks[:g])
-    width, reps = len(cfg.blocks[g][0]), cfg.blocks[g][1]
-    return [offset + r * width + pos for r in range(reps)]
 
 
 def build_model(ctx: "Context"):
@@ -113,7 +124,8 @@ def build_model(ctx: "Context"):
     for path, p in list(model.leaf_items()):
         if path[0] == "groups":
             t = weights.stacked(ctx.model, ctx.seed, path[-1],
-                                _layer_index(ctx.cfg, path), ctx.device)
+                                arch.layer_index(ctx.model, *path[1:3]),
+                                ctx.device)
         else:
             t = weights.draw(ctx.model, ctx.seed, path[0], -1, ctx.device)
         if t.shape != p.shape or t.dtype != p.dtype:
@@ -164,7 +176,7 @@ class Context:
         self.cell = find_cell(bench, cell_name)
         self.config = load_config(bench, self.cell["config"])
         self.model = model_fields(self.config, smoke)
-        self.cfg = program_config(self.model, self.config["pattern"])
+        self.cfg = program_config(self.model)
         self.mix = generator.load_mix(self.cell["traffic"])
         self.seed, self.seconds, self.trace = seed, seconds, trace
         self.device, self.t_start, self.smoke = device, t_start, smoke

@@ -7,7 +7,9 @@ sequence through the layers in fp32, one layer at a time (each drawn
 again from the seed, so that it fits beside the hidden states), and reads
 at each such position the gap by which the served token's logit lies
 below its best.  With ``control``, the same pass in fp8 (``model.fp8``)
-gives the gap of the token that the lower precision puts first."""
+gives the gap of the token that the lower precision puts first.  The
+layers, leaves and head are those of the configuration's reference
+module (``bench/arch.py``)."""
 
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from bench import weights
-from bench.reference import fingerprint, model as ref
+from bench import arch, weights
+from bench.reference import fingerprint, model as base
 
 Seq = Dict[str, object]   # tokens, segments, checks [(position, token)]
 
@@ -24,23 +26,24 @@ Seq = Dict[str, object]   # tokens, segments, checks [(position, token)]
 @torch.no_grad()
 def check(model: Dict, seed: int, device, seqs: Sequence[Seq],
           control: bool = False) -> Dict[str, float]:
-    ref.exact_fp32()
+    base.exact_fp32()
+    ref = arch.module(model)
     f32 = torch.float32
-    table = weights.draw(model, seed, "embed", -1, device, f32)
-    out_norm = weights.draw(model, seed, "out_norm", -1, device, f32)
-    w_head = (table.T if model["tie_embeddings"]
-              else weights.draw(model, seed, "lm_head", -1, device, f32))
-    xs = [ref.embed(model, table, torch.tensor(s["tokens"], device=device))
-          for s in seqs]
+    g = {name: weights.draw(model, seed, name, -1, device, f32)
+         for name in weights.global_specs(model)}
+    out_norm, w_head = g["out_norm"], ref.head(model, g)
+    xs = [ref.embed(model, g["embed"],
+                    torch.tensor(s["tokens"], device=device)) for s in seqs]
     xq = [x.clone() for x in xs] if control else None
     for l in range(model["n_layers"]):
         p = {name: weights.draw(model, seed, name, l, device, f32)
-             for name in weights.layer_specs(model)}
+             for name in weights.layer_specs(model, l)}
         for i, s in enumerate(seqs):
-            xs[i] = ref.layer(model, p, xs[i][None], s["segments"])[0]
+            xs[i] = ref.layer(model, p, xs[i][None], s["segments"],
+                              index=l)[0]
             if control:
                 xq[i] = ref.layer(model, p, xq[i][None], s["segments"],
-                                  quant="fp8")[0]
+                                  quant="fp8", index=l)[0]
         del p
     gaps: List[float] = []
     ctrl: List[float] = []
@@ -66,19 +69,22 @@ def check(model: Dict, seed: int, device, seqs: Sequence[Seq],
 @torch.no_grad()
 def weights_digest(model: Dict, seed: int, device) -> int:
     """The digest of the benchmark's weights in the program's leaf order
-    (the pytree's: sorted keys, each layer leaf stacked over the layers),
-    drawn again from the seed."""
-    names = ["embed"] + sorted(weights.layer_specs(model))
+    (the pytree's: ``embed``, then each group's pattern positions in
+    order, each position's leaves by sorted name, stacked over the layers
+    it holds, then ``lm_head`` where untied and ``out_norm``), drawn again
+    from the seed."""
+    def one(name: str) -> int:
+        return fingerprint.digest(weights.draw(model, seed, name, -1, device))
+
+    leaf = [one("embed")]
+    for g, (pattern, _) in enumerate(arch.blocks(model)):
+        for pos in range(len(pattern)):
+            layers = arch.layer_index(model, g, pos)
+            for name in sorted(weights.layer_specs(model, layers[0])):
+                leaf.append(sum(fingerprint.digest(
+                    weights.draw(model, seed, name, l, device))
+                    for l in layers) & fingerprint.M32)
     if not model["tie_embeddings"]:
-        names.append("lm_head")
-    names.append("out_norm")
-    leaf = []
-    for name in names:
-        if name in weights.layer_specs(model):
-            leaf.append(sum(fingerprint.digest(
-                weights.draw(model, seed, name, l, device))
-                for l in range(model["n_layers"])) & fingerprint.M32)
-        else:
-            leaf.append(fingerprint.digest(
-                weights.draw(model, seed, name, -1, device)))
+        leaf.append(one("lm_head"))
+    leaf.append(one("out_norm"))
     return fingerprint.fold(leaf)

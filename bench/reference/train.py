@@ -14,6 +14,7 @@ leaf's first clipped gradient (the norm of its difference from another
 run's).  A leaf is one layer's matrix or vector, or a leaf
 outside the layers, keyed (name, layer) with layer -1 outside.
 
+The loss is the configuration's reference module's (``bench/arch.py``).
 ``quant="fp8"`` is the control (every product's operands in float8);
 ``half_batch`` a planted fault: the loss over the first half of the rows
 only.
@@ -26,8 +27,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from bench import weights
-from bench.reference import model as ref
+from bench import arch, weights
+from bench.reference import model as base
 
 Key = Tuple[str, int]
 
@@ -38,7 +39,7 @@ def leaves(model: Dict, seed: int, device) -> Dict[Key, torch.Tensor]:
     out = {(name, -1): weights.draw(model, seed, name, -1, device, f32)
            for name in weights.global_specs(model)}
     for l in range(model["n_layers"]):
-        for name in weights.layer_specs(model):
+        for name in weights.layer_specs(model, l):
             out[name, l] = weights.draw(model, seed, name, l, device, f32)
     for t in out.values():
         t.requires_grad_(True)
@@ -48,10 +49,10 @@ def leaves(model: Dict, seed: int, device) -> Dict[Key, torch.Tensor]:
 def _loss(model: Dict, p: Dict[Key, torch.Tensor], batch: Dict,
           quant: Optional[str]) -> torch.Tensor:
     g = {name: p[name, -1] for name in weights.global_specs(model)}
-    layers = [{name: p[name, l] for name in weights.layer_specs(model)}
+    layers = [{name: p[name, l] for name in weights.layer_specs(model, l)}
               for l in range(model["n_layers"])]
-    return ref.lm_loss(model, g, layers, batch["inputs"], batch["targets"],
-                       quant)
+    return arch.module(model).lm_loss(model, g, layers, batch["inputs"],
+                                      batch["targets"], quant)
 
 
 def run(model: Dict, opt: Dict, seed: int, device,
@@ -60,7 +61,7 @@ def run(model: Dict, opt: Dict, seed: int, device,
         keep_first: bool = False,
         judge: Optional[Callable[[Key, torch.Tensor], float]] = None
         ) -> Dict:
-    ref.exact_fp32()
+    base.exact_fp32()
     p = leaves(model, seed, device)
     p0 = {k: t.detach().clone() for k, t in p.items()}
     mdt = getattr(torch, opt["moment_dtype"])

@@ -51,3 +51,28 @@ def test_fingerprint_work_and_digest_bytes():
     assert work.fingerprint_work(1000, 2) == (4000.0, 2004.0)
     assert work.digest_bytes([10, 20]) == 24 + 44
     assert work.BF16_FLOPS == 989e12 and work.HBM_BYTES_S == 3.35e12
+
+
+def test_windowed_layer_reads_its_window(monkeypatch):
+    # a module whose layers have windows counts keys by the port's rule;
+    # LLLG: three layers of window 128 to one of full attention
+    import sys
+    import types
+    from bench.reference import model as ref
+    mod = types.ModuleType("bench.reference.windowed_work")
+    mod.__dict__.update({k: v for k, v in vars(ref).items()
+                         if not k.startswith("_")}, keys=ref.window_keys)
+    monkeypatch.setitem(sys.modules, "bench.reference.windowed_work", mod)
+    w = {"kind": "attn", "window": 128}
+    m = dict(MOE, n_layers=4, reference="windowed_work",
+             blocks=[[[w, w, w, {"kind": "attn"}], 1]])
+    # a query at position 300 reads 128 keys in a window layer, not 301
+    assert ref.window_keys(m, 0, 300) == 128
+    assert ref.window_keys(m, 3, 300) == 301
+    assert work.query_keys(m, 300) == 3 * 128 + 301
+    # under the window every layer reads all keys up to its own
+    assert work.query_keys(m, 99) == 4 * 100
+    # the request at position 300: the layers, q.k and p.v over 685 keys
+    # (4 x 64 heads x 128), and the head once
+    assert work.serve_request_flops(m, 300, 1, 1) == \
+        2 * 4 * 222_822_400 + 32_768 * 685 + 2 * 622_329_856

@@ -28,6 +28,8 @@ from typing import Dict, Iterator, Tuple
 
 import torch
 
+from bench import arch
+
 NORM = (0.0, 0.1)           # (mean, scale) of a norm's w
 QK_NORM = (0.5, 0.1)
 GAIN_WO = 4.0
@@ -36,42 +38,16 @@ Spec = Tuple[Tuple[int, ...], torch.dtype, float, float]   # shape, dtype,
 
 
 def global_specs(model: Dict) -> Dict[str, Spec]:
-    D, V = model["d_model"], model["vocab"]
-    dt = getattr(torch, model["dtype"])
-    out = {"embed": ((V, D), dt, D ** -0.5, 0.0),
-           "out_norm": ((D,), dt, NORM[1], NORM[0])}
-    if not model["tie_embeddings"]:
-        out["lm_head"] = ((D, V), dt, D ** -0.5, 0.0)
-    return out
+    """The leaves outside the layers, as the configuration's reference
+    module (``arch.py``) lays them out."""
+    return arch.module(model).global_specs(model)
 
 
-def layer_specs(model: Dict) -> Dict[str, Spec]:
-    """One attention layer's leaves, as the port lays them out (x @ W,
-    W shaped (in, out); experts stacked on a leading axis)."""
-    D, H, KV, dh = (model["d_model"], model["n_heads"], model["n_kv_heads"],
-                    model["head_dim"])
-    dt = getattr(torch, model["dtype"])
-    s = D ** -0.5
-    out = {"ln1": ((D,), dt, NORM[1], NORM[0]),
-           "wq": ((D, H * dh), dt, s, 0.0), "wk": ((D, KV * dh), dt, s, 0.0),
-           "wv": ((D, KV * dh), dt, s, 0.0),
-           "wo": ((H * dh, D), dt, GAIN_WO * (H * dh) ** -0.5, 0.0),
-           "ln2": ((D,), dt, NORM[1], NORM[0])}
-    if model["qk_norm"]:
-        out["q_norm"] = ((dh,), dt, QK_NORM[1], QK_NORM[0])
-        out["k_norm"] = ((dh,), dt, QK_NORM[1], QK_NORM[0])
-    moe = model.get("moe")
-    if moe:
-        E, F = moe["n_experts"], moe["d_expert"]
-        out.update(
-            router=((D, E), getattr(torch, moe["router_dtype"]), s, 0.0),
-            w_gate=((E, D, F), dt, s, 0.0), w_up=((E, D, F), dt, s, 0.0),
-            w_down=((E, F, D), dt, F ** -0.5, 0.0))
-    else:
-        F = model["d_ff"]
-        out.update(w_gate=((D, F), dt, s, 0.0), w_up=((D, F), dt, s, 0.0),
-                   w_down=((F, D), dt, F ** -0.5, 0.0))
-    return out
+def layer_specs(model: Dict, layer: int = 0) -> Dict[str, Spec]:
+    """The leaves of layer ``layer``, as the configuration's reference
+    module lays them out (x @ W, W shaped (in, out); experts stacked on a
+    leading axis)."""
+    return arch.module(model).layer_specs(model, layer)
 
 
 def _seed(seed: int, name: str, layer: int) -> int:
@@ -91,7 +67,7 @@ def fill(out: torch.Tensor, seed: int, name: str, layer: int,
 def draw(model: Dict, seed: int, name: str, layer: int, device,
          dtype=None) -> torch.Tensor:
     """One leaf, drawn anew; with ``dtype``, cast after the draw."""
-    specs = global_specs(model) if layer < 0 else layer_specs(model)
+    specs = global_specs(model) if layer < 0 else layer_specs(model, layer)
     shape, dt, scale, mean = specs[name]
     t = fill(torch.empty(shape, dtype=dt, device=device), seed, name, layer,
              scale, mean)
@@ -100,9 +76,10 @@ def draw(model: Dict, seed: int, name: str, layer: int, device,
 
 def stacked(model: Dict, seed: int, name: str, layers: Iterator[int],
             device) -> torch.Tensor:
-    """Leaf ``name`` of the given layers, stacked on a leading axis."""
+    """Leaf ``name`` of the given layers (one pattern position's, which
+    share their leaves), stacked on a leading axis."""
     layers = list(layers)
-    shape, dt, scale, mean = layer_specs(model)[name]
+    shape, dt, scale, mean = layer_specs(model, layers[0])[name]
     t = torch.empty((len(layers),) + shape, dtype=dt, device=device)
     for i, layer in enumerate(layers):
         fill(t[i], seed, name, layer, scale, mean)
