@@ -1,6 +1,6 @@
-from repro_torch.configs.registry import (ARCHS, LONG_CONTEXT_OK,
+from repro_torch.configs.registry import (ARCHS, LONG_CONTEXT_OK, PORT_ONLY,
                                           get_config, get_smoke_config,
                                           list_archs)
 
-__all__ = ["ARCHS", "LONG_CONTEXT_OK", "get_config",
+__all__ = ["ARCHS", "LONG_CONTEXT_OK", "PORT_ONLY", "get_config",
            "get_smoke_config", "list_archs"]

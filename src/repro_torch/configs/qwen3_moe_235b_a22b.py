@@ -1,5 +1,5 @@
 """Qwen3-MoE 235B (22B active) — 128 experts, top-8, GQA kv=4, qk-norm.
-[hf:Qwen/Qwen3-30B-A3B; hf]
+[hf:Qwen/Qwen3-235B-A22B; hf]
 
 Same configuration as ``repro.configs.qwen3_moe_235b_a22b``;
 ``smoke_config`` is the reduced same-family config used by the CPU tests.

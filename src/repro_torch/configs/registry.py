@@ -1,5 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution, the same ten archs
-as ``repro.configs.registry``."""
+"""Architecture registry: ``--arch <id>`` resolution: the ten archs of
+``repro.configs.registry`` and the port's own (``PORT_ONLY``), which the
+JAX package does not have."""
 
 from __future__ import annotations
 
@@ -19,7 +20,11 @@ ARCHS: Dict[str, str] = {
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "k-exaone-236b-a23b": "repro_torch.configs.k_exaone_236b_a23b",
 }
+
+#: archs of the port alone: no JAX counterpart to hold them against
+PORT_ONLY = {"k-exaone-236b-a23b"}
 
 #: archs with a sub-quadratic (or state-based) path for long_500k decode
 LONG_CONTEXT_OK = {"gemma3-4b", "gemma3-1b", "xlstm-1.3b", "recurrentgemma-2b"}

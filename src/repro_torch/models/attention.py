@@ -1,5 +1,6 @@
 """Attention substrate: GQA, RoPE, qk-norm, sliding-window / global layers,
-ported from ``repro.models.attention``.
+ported from ``repro.models.attention``; a layer may take no position
+encoding (NoPE: ``use_rope=False``).
 
 * **window layers (prefill)** call ``ops.sliding_window_attention`` at every
   prompt length: the SWA kernel on the card, and on the CPU its plain
@@ -53,10 +54,11 @@ def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
 
 
 def qkv_project(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                positions: torch.Tensor, ctx=None
+                positions: torch.Tensor, ctx=None, use_rope: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> q (B,S,H,dh), k/v (B,S,KV,dh) with RoPE + qk-norm
-    (with a context, the products column-cut over "model")."""
+    (with a context, the products column-cut over "model"); without
+    ``use_rope`` (a NoPE layer) no position enters q or k."""
     q, k, v = sharding.columns(ctx, x, p, ("wq", "wk", "wv"))
     q = _split_heads(q, cfg.n_heads, cfg.dh)
     k = _split_heads(k, cfg.n_kv_heads, cfg.dh)
@@ -64,8 +66,9 @@ def qkv_project(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return q, k, v
 
 
@@ -271,8 +274,8 @@ def _write_pos(pos: torch.Tensor, slot: int, position: int) -> None:
 
 def decode_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                      x: torch.Tensor, cache: Cache,
-                     position: Union[int, torch.Tensor], ctx=None
-                     ) -> Tuple[torch.Tensor, Cache]:
+                     position: Union[int, torch.Tensor], ctx=None,
+                     use_rope: bool = True) -> Tuple[torch.Tensor, Cache]:
     """x: (B, 1, D); returns (attention output (B, 1, D), the cache, updated
     in place).  Without a context ``position`` is a 0-d integer tensor on
     x's device, and the slot, the writes and the mask are worked out from
@@ -287,7 +290,7 @@ def decode_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     else:
         pos1 = torch.full((B, 1), position, dtype=torch.int32,
                           device=x.device)
-    q, k_new, v_new = qkv_project(cfg, p, x, pos1, ctx)
+    q, k_new, v_new = qkv_project(cfg, p, x, pos1, ctx, use_rope)
     k, v, pos = cache["k"], cache["v"], cache["pos"]
     slot = position % k.shape[1]
     if ctx is None:
@@ -331,11 +334,12 @@ def _fill_cache(cache: Cache, k: torch.Tensor, v: torch.Tensor) -> Cache:
 def prefill_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       x: torch.Tensor, window: Optional[int],
                       positions: torch.Tensor, cache: Optional[Cache] = None,
-                      ctx=None) -> Tuple[torch.Tensor, Optional[Cache]]:
+                      ctx=None, use_rope: bool = True
+                      ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Prefill attention; fills ``cache`` (fresh, from ``init_cache``) if
     given.  With a context the new cache is made of DTensors, batch over
     the data axes (and kv heads over "model" where they divide)."""
-    q, k, v = qkv_project(cfg, p, x, positions, ctx)
+    q, k, v = qkv_project(cfg, p, x, positions, ctx, use_rope)
     if ctx is not None:
         out = sharded_attention(cfg, ctx, q, k, v, window,
                                 window and ops.sliding_window_attention)

@@ -27,6 +27,10 @@ class LayerSpec:
     kind: str                      # "attn" | "mlstm" | "slstm" | "rglru"
     window: Optional[int] = None   # attention window (None = full/causal)
     has_ffn: bool = True           # xLSTM blocks carry their own projections
+    # the layer's FFN: None, the model's (routed with ``cfg.moe``);
+    # "dense", a SwiGLU of ``d_ff`` in a routed model (leading dense layers)
+    ffn: Optional[str] = None
+    rope: bool = True              # False: no position encoding (NoPE)
 
 
 @dataclass(frozen=True)
@@ -36,6 +40,20 @@ class MoEConfig:
     d_expert: int
     capacity_factor: float = 1.25
     router_dtype: str = "float32"
+    # "softmax": the top-k logits' softmax; "sigmoid": experts chosen by
+    # sigmoid(logit) + a selection bias (the ``router_bias`` leaf), weighted
+    # by their sigmoid scores normalised to sum 1, times ``routed_scale``
+    scoring: str = "softmax"
+    routed_scale: float = 1.0
+    d_shared: int = 0              # a shared expert's width (0: none)
+    # the experts held on this device, [0, held): the router keeps all
+    # ``n_experts`` outputs, and routes to the others add nothing here
+    # (one device's share of an expert-parallel layer); None: all
+    held: Optional[int] = None
+
+    @property
+    def n_held(self) -> int:
+        return self.n_experts if self.held is None else self.held
 
 
 @dataclass(frozen=True)
@@ -56,6 +74,9 @@ class ModelConfig:
     qk_norm: bool = False
     norm_eps: float = 1e-6
     tie_embeddings: bool = True  # False: an untied (d_model, vocab) lm_head
+    # post-norm layers: ``x + ln1(attn(x))``, then ``x + ln2(ffn(x))``, no
+    # norm in front of attention or the FFN; False: pre-norm
+    post_norm: bool = False
     dtype: str = "bfloat16"
     # modality frontend stub: prefill and training take (B, S, D)
     # precomputed embeddings in place of token ids
@@ -82,6 +103,10 @@ class ModelConfig:
 
     def tdtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    def routed(self, spec: LayerSpec) -> bool:
+        """Whether ``spec``'s FFN is the routed one."""
+        return self.moe is not None and spec.ffn != "dense"
 
     def layer_list(self) -> List[LayerSpec]:
         out: List[LayerSpec] = []
@@ -149,19 +174,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 @dataclass(frozen=True)
 class Leaf:
     """One parameter of a layer (unstacked): its shape, its init (normal
-    noise times ``scale``, or the constant ``fill`` where ``scale`` is None)
-    and its dtype (None: the model's)."""
+    noise times ``scale``, or the constant ``fill`` where ``scale`` is None),
+    its dtype (None: the model's) and whether the train step trains it."""
     shape: Tuple[int, ...]
     scale: Optional[float] = None
     fill: float = 0.0
     dtype: Optional[torch.dtype] = None
+    trained: bool = True
 
 
 def layer_leaves(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Leaf]:
     """The parameters of one layer of ``spec``'s kind, as
     ``repro.models.common.init_layer_params`` makes them: a dense FFN, or
-    with ``cfg.moe`` an fp32 router and the experts stacked on a leading
-    axis."""
+    with ``cfg.moe`` an fp32 router and the held experts stacked on a
+    leading axis, with the sigmoid router's selection bias (fp32, zero at
+    init) and a shared expert where the config has them.  With
+    ``cfg.post_norm``, ``ln1`` and ``ln2`` are the norms after attention
+    and after the FFN."""
     D, dh, H, KV, F = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     s_in = D ** -0.5
     leaves = {"ln1": Leaf((D,))}
@@ -198,12 +227,22 @@ def layer_leaves(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Leaf]:
         raise ValueError(spec.kind)
     if spec.has_ffn and spec.kind in ("attn", "rglru"):
         leaves["ln2"] = Leaf((D,))
-        if cfg.moe is not None:
-            E, Fe = cfg.moe.n_experts, cfg.moe.d_expert
+        m = cfg.moe
+        if cfg.routed(spec):
+            E, Eh, Fe = m.n_experts, m.n_held, m.d_expert
             leaves.update(
                 router=Leaf((D, E), s_in, dtype=torch.float32),
-                w_gate=Leaf((E, D, Fe), s_in), w_up=Leaf((E, D, Fe), s_in),
-                w_down=Leaf((E, Fe, D), Fe ** -0.5))
+                w_gate=Leaf((Eh, D, Fe), s_in), w_up=Leaf((Eh, D, Fe), s_in),
+                w_down=Leaf((Eh, Fe, D), Fe ** -0.5))
+            if m.scoring == "sigmoid":
+                # set outside the gradient (DeepSeek-V3's load balancing)
+                leaves["router_bias"] = Leaf((E,), dtype=torch.float32,
+                                             trained=False)
+            if m.d_shared:
+                Fs = m.d_shared
+                leaves.update(shared_gate=Leaf((D, Fs), s_in),
+                              shared_up=Leaf((D, Fs), s_in),
+                              shared_down=Leaf((Fs, D), Fs ** -0.5))
         else:
             leaves.update(w_gate=Leaf((D, F), s_in), w_up=Leaf((D, F), s_in),
                           w_down=Leaf((F, D), F ** -0.5))
@@ -217,7 +256,8 @@ class Transformer(nn.Module):
     ``lm_head`` (d_model, vocab); a tied head reads ``embed.T``.  The forward
     passes are the plain functions of ``repro_torch.models.transformer``.
     Parameters start frozen, as serving wants them; ``requires_grad_()``
-    makes them trainable (the train step of ``runtime.steps`` does).
+    makes them trainable (the train step of ``runtime.steps`` does), all
+    but the leaves that are not trained (``Leaf.trained``).
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -242,6 +282,17 @@ class Transformer(nn.Module):
                     for k, leaf in layer_leaves(cfg, spec).items()})
                 for spec in pattern)
             for pattern, reps in cfg.blocks)
+        self._untrained = [
+            (g, i, k)
+            for g, (pattern, _) in enumerate(cfg.blocks)
+            for i, spec in enumerate(pattern)
+            for k, leaf in layer_leaves(cfg, spec).items() if not leaf.trained]
+
+    def requires_grad_(self, requires_grad: bool = True) -> "Transformer":
+        super().requires_grad_(requires_grad)
+        for g, i, k in self._untrained:
+            self.groups[g][i][k].requires_grad_(False)
+        return self
 
     def leaf_items(self) -> Iterator[Tuple[Tuple, torch.Tensor]]:
         """(path, parameter) in ``jax.tree.leaves`` order of the JAX pytree

@@ -1,5 +1,6 @@
 """Feed-forward layers, ported from ``repro.models.moe``: the dense SwiGLU
-FFN and the routed Mixture-of-Experts FFN on one device.
+FFN and the routed Mixture-of-Experts FFN on one device, and a shared
+expert.
 
 The routed FFN keeps the reference's semantics to the bit where the
 arithmetic allows: top-k routing on fp32 logits with ties broken toward the
@@ -11,7 +12,10 @@ time in the order the reference's sorted scatter-add meets them, ascending
 expert index, in the activation dtype.  Every step is a gather, a sort or
 a scatter with unique targets, so the result has the same bits on every
 run on the card under ``torch.use_deterministic_algorithms(True)``, and no
-step has a shape that depends on the data.
+step has a shape that depends on the data.  A device that holds a share
+of the experts (``moe.held``) routes over all of them and computes its
+own experts' part: routes to the others are dropped as a sharded rank's
+are, and their part is left out.
 
 On a mesh (a ``ShardCtx``), ``moe_ffn`` runs the reference's
 expert-parallel branch: the experts are cut over "model", each rank runs
@@ -24,7 +28,7 @@ capacity is then that of the data shard's T, as inside the reference's
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +36,7 @@ from torch.distributed.tensor import Partial
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.parallel import comm, sharding
+from repro_torch.runtime import spans
 
 _EXPERTS = ("router", "w_gate", "w_up", "w_down")
 
@@ -40,17 +45,30 @@ def _capacity(T: int, k: int, E: int, cf: float) -> int:
     return max(min(T, 32), int(math.ceil(T * k / E * cf)))
 
 
-def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
+def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
+          bias: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) -> (weights (T, k) fp32, experts (T, k) int64).
 
     The logits are an fp32 product (TF32 would move near-ties; PyTorch's
     default fp32 matmul precision, "highest", keeps it off).  A stable
-    descending sort puts the lower index first on equal logits, as
-    ``jax.lax.top_k`` does (``torch.topk`` does not)."""
+    descending sort puts the lower index first on equal scores, as
+    ``jax.lax.top_k`` does (``torch.topk`` does not).  With softmax scoring
+    the weights are the top k logits' softmax; with sigmoid scoring (the
+    ``glm4_moe`` router with one group) the experts are the top k of
+    ``sigmoid(logits) + bias`` and their weights the sigmoid scores without
+    the bias, divided by their sum and times ``routed_scale``."""
+    m = cfg.moe
+    k = m.top_k
     logits = x.float() @ router_w                      # (T, E)
+    if m.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        top_e = torch.sort(scores + bias, dim=-1, descending=True,
+                           stable=True)[1][:, :k]
+        w = scores.gather(1, top_e)
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+        return w * m.routed_scale, top_e
     top_w, top_e = torch.sort(logits, dim=-1, descending=True, stable=True)
-    k = cfg.moe.top_k
     return torch.softmax(top_w[:, :k], dim=-1), top_e[:, :k]
 
 
@@ -66,7 +84,9 @@ def moe_ffn_local(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     k = m.top_k
     C = _capacity(T, k, m.n_experts, m.capacity_factor)
 
-    top_w, top_e = route(cfg, p["router"], x)
+    # the selection bias where the router has one (sigmoid scoring)
+    bias = (p["router_bias"],) if "router_bias" in p else ()
+    top_w, top_e = route(cfg, p["router"], x, *bias)
     flat_e = top_e.reshape(-1)                          # (T·k,)
     flat_w = top_w.reshape(-1).to(x.dtype)
     flat_tok = torch.arange(T, device=x.device).repeat_interleave(k)
@@ -115,14 +135,25 @@ def dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return sharding.rows(ctx, F.silu(g) * u, p, "w_down")
 
 
+def shared_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               ctx=None) -> torch.Tensor:
+    """The shared expert: a SwiGLU over every token, the ``shared_*``
+    leaves, cut on a mesh as the dense FFN is."""
+    return dense_ffn({"w_gate": p["shared_gate"], "w_up": p["shared_up"],
+                      "w_down": p["shared_down"]}, x, ctx)
+
+
 def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             x: torch.Tensor, ctx=None) -> torch.Tensor:
-    """MoE FFN over (B, S, D) activations: every expert on this device, or
-    with a context expert-parallel over its "model" axis."""
+    """The routed experts of an MoE FFN over (B, S, D) activations: the
+    experts this device holds, [0, ``moe.n_held``), routed over all of
+    them, or with a context expert-parallel over its "model" axis.  A
+    ``moe.routed`` span while spans are on."""
     if ctx is not None:
         return _moe_ffn_sharded(cfg, p, x, ctx)
     B, S, D = x.shape
-    out = moe_ffn_local(cfg, p, x.reshape(B * S, D), 0, cfg.moe.n_experts)
+    with spans.span("moe.routed"):
+        out = moe_ffn_local(cfg, p, x.reshape(B * S, D), 0, cfg.moe.n_held)
     return out.reshape(B, S, D)
 
 
@@ -131,6 +162,12 @@ def _moe_ffn_sharded(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     """The reference's ``shard_map`` of ``moe_ffn``: x (B, S, D) by batch
     over the data axes, the router whole, the experts cut over "model"
     (E divisible by its size); out like x, summed over "model"."""
+    m = cfg.moe
+    if m.n_held != m.n_experts or m.scoring != "softmax":
+        raise NotImplementedError(
+            f"{cfg.name}: the expert-parallel layer takes every expert and "
+            f"softmax scoring, not {m.n_held} of {m.n_experts} held and "
+            f"{m.scoring} scoring")
     mesh, tp = ctx.mesh, ctx.tp_axis
     e_local = cfg.moe.n_experts // ctx.tp_size
     e0 = mesh.get_local_rank(tp) * e_local

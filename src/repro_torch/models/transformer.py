@@ -4,8 +4,11 @@ decode steps, with the per-kind dispatch of ``apply_layer_prefill``,
 ``apply_layer_decode`` and ``init_layer_state``; and the training forward
 and loss (``forward_train``, ``lm_loss``) through every kind, with the
 config's activation checkpointing (``remat``).  A layer's FFN is dense or,
-with ``cfg.moe``, routed (``models.moe.moe_ffn``).  Prefill and training
-take (B, S) token ids or, for a modality frontend, (B, S, D) embeddings.
+with ``cfg.moe``, routed (``models.moe.moe_ffn``) with a shared expert
+where the config has one, unless its ``LayerSpec`` asks for a dense one;
+layers are pre-norm, or post-norm with ``cfg.post_norm``.  Prefill and
+training take (B, S) token ids or, for a modality frontend, (B, S, D)
+embeddings.
 JAX's ``lax.scan`` over a group's ``reps`` becomes a Python loop; the
 caches keep JAX's nesting (per group, per pattern position, a dict of
 tensors stacked over ``reps``): attention KV caches, or the state of a
@@ -43,7 +46,7 @@ from repro_torch.models.attention import (attention_train,
                                           sharded_attention)
 from repro_torch.models.common import (LayerSpec, ModelConfig, Transformer,
                                        rms_norm, weak_scalar)
-from repro_torch.models.moe import dense_ffn, moe_ffn
+from repro_torch.models.moe import dense_ffn, moe_ffn, shared_ffn
 from repro_torch.parallel import comm, sharding
 
 Caches = Tuple[Tuple[Dict[str, torch.Tensor], ...], ...]
@@ -103,15 +106,38 @@ def routed_ffn_cut(fn: Callable[..., torch.Tensor]) -> Iterator[None]:
         _routed_cut = before
 
 
-def _ffn_part(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+def _attn_input(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                x: torch.Tensor) -> torch.Tensor:
+    """What attention reads: ``ln1(x)``, or with ``cfg.post_norm`` x."""
+    return x if cfg.post_norm else rms_norm(x, p["ln1"], cfg.norm_eps)
+
+
+def _residual(cfg: ModelConfig, norm: torch.Tensor, x: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    """x plus a sublayer's output, normed first with ``cfg.post_norm``."""
+    if cfg.post_norm:
+        out = rms_norm(out, norm, cfg.norm_eps)
+    return x + out
+
+
+def _ffn_part(cfg: ModelConfig, spec: LayerSpec, p: Dict[str, torch.Tensor],
               x: torch.Tensor, ctx: Optional[ShardCtx] = None
               ) -> torch.Tensor:
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if cfg.moe is None:
-        return x + dense_ffn(p, h, ctx)
-    if _routed_cut is not None and ctx is None:
-        return x + _routed_cut(cfg, p, h)
-    return x + moe_ffn(cfg, p, h, ctx)
+    """x plus the layer's FFN (normed before, or after with post-norm):
+    dense, or routed (``moe_ffn`` as this module names it, or while a
+    step is captured ``_routed_cut``) plus the shared expert where the
+    config has one."""
+    h = x if cfg.post_norm else rms_norm(x, p["ln2"], cfg.norm_eps)
+    routed = cfg.routed(spec)
+    if not routed:
+        f = dense_ffn(p, h, ctx)
+    elif _routed_cut is not None and ctx is None:
+        f = _routed_cut(cfg, p, h)
+    else:
+        f = moe_ffn(cfg, p, h, ctx)
+    if routed and cfg.moe.d_shared:
+        f = f + shared_ffn(p, h, ctx)
+    return _residual(cfg, p["ln2"], x, f)
 
 
 def _embed_rows(table: torch.Tensor, tokens: torch.Tensor,
@@ -202,14 +228,16 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 def _apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p, x, positions,
                          max_seq: int, ctx: Optional[ShardCtx] = None):
     if spec.kind == "attn":
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = _attn_input(cfg, p, x)
         # on a mesh only the cache's length and positions are read: each
         # rank fills its own shards (``prefill_attention``)
         cache = init_cache(cfg, spec.window, x.shape[0] if ctx is None else 1,
                            max_seq, cfg.tdtype(), x.device)
         attn_out, new_cache = prefill_attention(cfg, p, h, spec.window,
-                                                positions, cache, ctx=ctx)
-        return _ffn_part(cfg, p, x + attn_out, ctx), new_cache
+                                                positions, cache, ctx=ctx,
+                                                use_rope=spec.rope)
+        x = _residual(cfg, p["ln1"], x, attn_out)
+        return _ffn_part(cfg, spec, p, x, ctx), new_cache
     if spec.kind == "mlstm":
         return rec.mlstm_block(cfg, p, x, ctx=ctx)
     if spec.kind == "slstm":
@@ -217,7 +245,7 @@ def _apply_layer_prefill(cfg: ModelConfig, spec: LayerSpec, p, x, positions,
     if spec.kind == "rglru":
         x, st = rec.rglru_block(cfg, p, x, ctx=ctx)
         if spec.has_ffn:
-            x = _ffn_part(cfg, p, x, ctx)
+            x = _ffn_part(cfg, spec, p, x, ctx)
         return x, st
     raise ValueError(spec.kind)
 
@@ -229,9 +257,10 @@ def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
     """One layer of a decode step.  ``cache`` holds this layer's views into
     the stacked caches; they are updated in place."""
     if spec.kind == "attn":
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        attn_out, _ = decode_attention(cfg, p, h, cache, position, ctx=ctx)
-        return _ffn_part(cfg, p, x + attn_out, ctx)
+        attn_out, _ = decode_attention(cfg, p, _attn_input(cfg, p, x), cache,
+                                       position, ctx=ctx, use_rope=spec.rope)
+        return _ffn_part(cfg, spec, p, _residual(cfg, p["ln1"], x, attn_out),
+                         ctx)
     step = {"mlstm": rec.mlstm_step, "slstm": rec.slstm_step,
             "rglru": rec.rglru_step}.get(spec.kind)
     if step is None:
@@ -240,7 +269,7 @@ def _apply_layer_decode(cfg: ModelConfig, spec: LayerSpec, p, x,
     for k, t in new_state.items():
         cache[k].copy_(t)
     if spec.kind == "rglru" and spec.has_ffn:
-        x = _ffn_part(cfg, p, x, ctx)
+        x = _ffn_part(cfg, spec, p, x, ctx)
     return x
 
 
@@ -316,8 +345,8 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec,
     forms, which call no forward-only kernel."""
     if spec.kind == "attn":
         B, S = x.shape[:2]
-        q, k, v = qkv_project(cfg, p, rms_norm(x, p["ln1"], cfg.norm_eps),
-                              positions, ctx)
+        q, k, v = qkv_project(cfg, p, _attn_input(cfg, p, x), positions,
+                              ctx, spec.rope)
         if ctx is None:
             out = attention_train(cfg, q, k, v, spec.window)
         else:
@@ -325,15 +354,16 @@ def apply_layer_train(cfg: ModelConfig, spec: LayerSpec,
             out = sharded_attention(cfg, ctx, q, k, v, w,
                                     banded_window_attention
                                     if w is not None and S > w else None)
-        x = x + sharding.rows(ctx, sharding.flatten(out, 2), p, "wo")
-        return _ffn_part(cfg, p, x, ctx)
+        x = _residual(cfg, p["ln1"], x,
+                      sharding.rows(ctx, sharding.flatten(out, 2), p, "wo"))
+        return _ffn_part(cfg, spec, p, x, ctx)
     if spec.kind == "mlstm":
         return rec.mlstm_block(cfg, p, x, train=True, ctx=ctx)[0]
     if spec.kind == "slstm":
         return rec.slstm_block(cfg, p, x, ctx=ctx)[0]
     if spec.kind == "rglru":
         x = rec.rglru_block(cfg, p, x, train=True, ctx=ctx)[0]
-        return _ffn_part(cfg, p, x, ctx) if spec.has_ffn else x
+        return _ffn_part(cfg, spec, p, x, ctx) if spec.has_ffn else x
     raise ValueError(spec.kind)
 
 

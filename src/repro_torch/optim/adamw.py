@@ -8,7 +8,7 @@ The arithmetic is the JAX package's, operation for operation: Python
 floats enter as fp32 constants (JAX's weak types), the clip scale is cast
 to the gradient's dtype before it multiplies, the bias corrections raise
 b1 and b2 to the step count in fp32, and weight decay applies to every
-leaf.
+trained leaf.
 
 Unlike the functional original, the update writes in place: the new
 weights into the parameters, the new moments and master into the state's
@@ -104,7 +104,14 @@ def adamw_update(params: Sequence[torch.Tensor],
                  cfg: AdamWConfig) -> State:
     """One AdamW step.  Writes the new weights into ``params`` and the new
     moments and master into ``state``'s tensors; returns the state with the
-    count advanced."""
+    count advanced.  A leaf whose gradient is None is not trained: its
+    value, moments and master stay as they are."""
+    live = [i for i, g in enumerate(grads) if g is not None]
+    if len(live) < len(grads):
+        sub = {k: [state[k][i] for i in live] for k in ("mu", "nu", "master")}
+        out = adamw_update([params[i] for i in live],
+                           [grads[i] for i in live], dict(state, **sub), cfg)
+        return dict(state, count=out["count"])
     count = state["count"] + 1
     kept = {k: state[k] for k in ("mu", "nu", "master")}
     mesh, layouts = None, None

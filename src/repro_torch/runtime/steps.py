@@ -34,10 +34,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     loss and its gradients (left in each parameter's ``.grad``), one AdamW
     step written into the model and the state, and with ``cfg.attest`` the
     digests ``grad_fp`` of the gradients and ``param_fp`` of the new
-    parameters, both in ``param_leaves()`` order.  ``batch`` holds
-    ``inputs``, (B, S) integer tokens or, for a frontend arch, (B, S, D)
-    float embeddings, and integer ``targets`` (B, S), on the model's
-    device.  With ``ctx`` the gradients are laid out as their parameters
+    parameters, both in ``param_leaves()`` order (a leaf that is not
+    trained, ``Leaf.trained``, keeps its value and has no gradient).
+    ``batch`` holds ``inputs``, (B, S) integer tokens or, for a frontend
+    arch, (B, S, D) float embeddings, and integer ``targets`` (B, S), on
+    the model's device.  With ``ctx`` the gradients are laid out as their parameters
     before the update, and the loss is the replicated value.
 
     With spans on (``runtime.spans``) a step is a ``train.step`` span
@@ -60,7 +61,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                 loss = lm_loss(model, batch["inputs"], batch["targets"], ctx)
             with spans.span("train.backward"):
                 loss.backward()
-        grads = [p.grad for p in params]
+        # a leaf that is not trained (a router's selection bias) has None
+        grads = [p.grad if p.requires_grad else None for p in params]
+        if any(g is None for p, g in zip(params, grads) if p.requires_grad):
+            raise RuntimeError(f"{cfg.name}: the loss reaches no gradient of "
+                               f"a trained leaf")
         if ctx is not None:
             grads = [g.redistribute(p.device_mesh, p.placements)
                      for p, g in zip(params, grads)]
@@ -71,7 +76,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         if cfg.attest:
             # uBFT attestation: replicas CTBcast these (see runtime.trainer)
             with spans.span("train.attest"):
-                metrics["grad_fp"] = fingerprint_tree(grads)
+                metrics["grad_fp"] = fingerprint_tree(
+                    g for g in grads if g is not None)
                 metrics["param_fp"] = fingerprint_tree(params)
         spans.end(step)
         return opt_state, metrics

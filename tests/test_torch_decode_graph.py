@@ -160,12 +160,12 @@ def test_graphed_decoder_gives_the_eager_tokens_and_caches(arch, graphed):
 def test_routed_ffn_runs_between_the_graphs_by_its_module_name(arch,
                                                                graphed,
                                                                monkeypatch):
-    """A routed model's step is one graph a layer and one more; a wrapper
-    put at ``transformer.moe_ffn`` after the capture is called once a layer
-    a replayed step (and once a layer a prefill), and the replicated
-    server serves the eager tokens."""
+    """A routed model's step is one graph a routed layer and one more; a
+    wrapper put at ``transformer.moe_ffn`` after the capture is called once
+    a routed layer a replayed step (and once a routed layer a prefill),
+    and the replicated server serves the eager tokens."""
     model = _model(arch)
-    n_layers = model.cfg.n_layers
+    n_layers = sum(map(model.cfg.routed, model.cfg.layer_list()))
     requests = [("s0", PROMPT, 6), ("s1", [3, 1, 4], 4), ("s0", [2, 7], 5)]
     hist, want = {}, []
     for sid, prompt, n in requests:        # each session's eager tokens

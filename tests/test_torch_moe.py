@@ -28,7 +28,7 @@ from repro.optim import adamw as jadamw
 from repro.runtime import attest as jattest
 
 from repro_torch import bridge
-from repro_torch.configs import (LONG_CONTEXT_OK, get_config,
+from repro_torch.configs import (LONG_CONTEXT_OK, PORT_ONLY, get_config,
                                  get_smoke_config, list_archs)
 from repro_torch.models import common as tcommon
 from repro_torch.models import moe as tmoe
@@ -57,6 +57,30 @@ MAX_FLIPS = 0.01
 #: reference config fields the port lacks: none since the dry-run slice
 #: brought ``tie_embeddings``, ``max_seq``, ``kv_chunk`` and ``logits_fp32``
 NOT_PORTED = set()
+#: fields of the port alone (its own archs' layers, norms and routers), by
+#: the dataclass that holds them, with the defaults at which they compute
+#: the reference's model
+PORT_FIELDS = {"model": {"post_norm": False},
+               "layer": {"ffn": None, "rope": True},
+               "moe": {"scoring": "softmax", "routed_scale": 1.0,
+                       "d_shared": 0, "held": None}}
+
+
+def _reference_fields(cfg: dict) -> dict:
+    """A port config as a dict of the reference's fields: each field of
+    the port alone taken out, after checking it holds its default."""
+    def strip(d, kind):
+        for k, default in PORT_FIELDS[kind].items():
+            assert d.pop(k) == default, k
+        return d
+
+    cfg = strip(dict(cfg), "model")
+    cfg["blocks"] = tuple(
+        (tuple(strip(dict(spec), "layer") for spec in pattern), reps)
+        for pattern, reps in cfg["blocks"])
+    if cfg["moe"] is not None:
+        cfg["moe"] = strip(dict(cfg["moe"]), "moe")
+    return cfg
 
 
 def _np(x):
@@ -320,8 +344,9 @@ def test_frontend_prefill_and_loss_match_jax(arch):
 # Configs, parameters, crossing
 # ---------------------------------------------------------------------------
 def test_registry_lists_the_reference_archs():
-    assert list_archs() == jax_list_archs()
-    assert len(list_archs()) == 10
+    assert [a for a in list_archs() if a not in PORT_ONLY] == jax_list_archs()
+    assert len(list_archs()) == 10 + len(PORT_ONLY)
+    assert not PORT_ONLY & set(jax_list_archs())
     from repro.configs import LONG_CONTEXT_OK as jax_long
     assert LONG_CONTEXT_OK == jax_long
 
@@ -329,7 +354,8 @@ def test_registry_lists_the_reference_archs():
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 @pytest.mark.parametrize("arch", jax_list_archs())
 def test_config_matches_reference_field_by_field(arch, smoke):
-    t = dataclasses.asdict((get_smoke_config if smoke else get_config)(arch))
+    t = _reference_fields(dataclasses.asdict(
+        (get_smoke_config if smoke else get_config)(arch)))
     j = dataclasses.asdict((jax_smoke_config if smoke else jax_config)(arch))
     assert set(j) - set(t) == NOT_PORTED and set(t) <= set(j)
     assert j["tie_embeddings"]
