@@ -67,7 +67,8 @@
 10. serves the routed-MoE archs at full width, depth cut to 8 layers
    (bf16, random weights from seed 0), through the same 3-replica token
    server and checks as phase 7: qwen3-moe-235b-a22b (128 experts, top-8)
-   and llama4-scout-17b-a16e (16 experts, top-1); the peak memory after
+   and llama4-scout-17b-a16e (16 experts, top-1), the routed-experts
+   kernel launched once a routed layer a decode step; the peak memory after
    set-up and while serving, below 80 GB; the fingerprint kernel bit for
    bit against its plain version on qwen3-moe's largest stacked expert
    leaf (more than 2^32 words), and timed there; llama4-scout's prefill
@@ -152,8 +153,14 @@
    a decode step within 10% of the eager step's, and the routed FFN's
    kernels charged to the span around ``moe_ffn``; and each way's
    untraced time a call.
+15. holds the routed-experts kernel (``csrc/routed.cu``) against its plain
+   version in bf16 at the serving cells' widths: qwen3-moe-235b-a22b (128
+   experts held, top-8; T 1 and 16) and K-EXAONE-236B-A23B (16 of 128
+   held; a token's slots held 0, 1, 3 and 8 of 8, and T 2), repeats bit
+   for bit, and times it at T = 1 beside the held slots' bytes bound, the
+   plain version and three ``torch.bmm`` over the gathered experts.
 
-Any failure raises.  ``--only 3,10,12,13,14`` runs the build and those phases
+Any failure raises.  ``--only 3,10,12,13,14,15`` runs the build and those phases
 alone and prints no result.  The line before the last is a JSON object of
 per-kernel numbers (a kernel timed at several shapes lists them under
 ``shapes``; its top-level numbers are those of the first).  Each time is
@@ -216,6 +223,7 @@ try:
                                                  fingerprint_plain)
     from repro_torch.kernels.mlstm import mlstm_plain  # noqa: E402
     from repro_torch.kernels.rglru import rglru_plain  # noqa: E402
+    from repro_torch.kernels.routed import routed_plain  # noqa: E402
     from repro_torch.kernels.swa import swa_cuda, swa_plain  # noqa: E402
     from repro_torch.launch import costing, dryrun, serve  # noqa: E402
     from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
@@ -259,6 +267,11 @@ RGLRU_TOL = 1e-5                       # tests/test_kernels.py's rtol = atol
 # plain version's only in the order of fp32 sums, whatever the input type
 MLSTM_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-4}
 MLSTM_STATE_TOL = 2e-4
+# the routed kernel against its plain version in bf16, as a share of the
+# output's largest value: the plain version's cuBLAS products sum their D
+# (or F) terms in another order, so h, u and y may round to the
+# neighbouring bf16 value; test_torch_moe.py's bf16 limit of one MoE layer
+ROUTED_TOL = 3e-2
 # phase 8: qwen3-8b's depth cut to fit three replicas' state on one card;
 # two sequences of 1024 tokens a step; the launcher's learning rate
 TRAIN_LAYERS = 4
@@ -605,6 +618,110 @@ def phase_rglru() -> dict:
             **{k: shapes[0][k] for k in TIMES}, "shapes": shapes}
 
 
+def _routes(T: int, k: int, E: int, e_held: int, held: int, scale: float,
+            gen: torch.Generator):
+    """T tokens, each routed to k distinct experts of E, ``held`` of them in
+    [0, e_held), in a shuffled slot order; positive weights summing to
+    ``scale``."""
+    rows = []
+    for _ in range(T):
+        mine = torch.randperm(e_held, device="cuda", generator=gen)[:held]
+        rest = e_held + torch.randperm(E - e_held, device="cuda",
+                                       generator=gen)[:k - held]
+        e = torch.cat([mine, rest])
+        rows.append(e[torch.randperm(k, device="cuda", generator=gen)])
+    w = torch.rand(T, k, device="cuda", generator=gen) + 0.1
+    return torch.stack(rows), w / w.sum(-1, keepdim=True) * scale
+
+
+def phase_routed() -> dict:
+    """Phase 15: the routed-experts kernel at the serving cells' widths in
+    bf16 against its plain version: Qwen3-235B-A22B (128 experts held,
+    top-8) and K-EXAONE-236B-A23B (16 of 128 held, top-8, weights x 2.5)
+    with 0, 1, 3 and 8 of a token's slots held, and T·k = the experts held;
+    two launches give the same bits; a token with no held slot gets zeros.
+    Times at T = 1 beside the bytes bound of the held slots, the plain
+    version's, and three ``torch.bmm`` over the held slots' experts
+    gathered beforehand (``library_ms``; the port never calls it)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    worst, shapes = 0.0, []
+    for arch, e_held, E, D, Fe, k, scale, cases in (
+            ("qwen3-moe-235b-a22b", 128, 128, 4096, 1536, 8, 1.0,
+             ((1, 8), (16, 8))),
+            ("k-exaone-236b-a23b", 16, 128, 6144, 2048, 8, 2.5,
+             ((1, 0), (1, 1), (1, 3), (1, 8), (2, 3)))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        w_gate, w_up = (torch.randn(e_held, D, Fe, device="cuda",
+                                    dtype=torch.bfloat16,
+                                    generator=gen).mul_(D ** -0.5)
+                        for _ in range(2))
+        w_down = torch.randn(e_held, Fe, D, device="cuda",
+                             dtype=torch.bfloat16,
+                             generator=gen).mul_(Fe ** -0.5)
+        for T, held in cases:
+            top_e, top_w = _routes(T, k, E, e_held, held, scale, gen)
+            x = torch.randn(T, D, device="cuda", dtype=torch.bfloat16,
+                            generator=gen)
+            args = (x, top_e, top_w, w_gate, w_up, w_down, 0, e_held)
+            before = ops.launches["routed"]
+            got = ops.routed_experts(*args)
+            again = ops.routed_experts(*args)
+            want = routed_plain(*args)
+            torch.cuda.synchronize()
+            what = f"routed {arch} T={T}, {held} of {k} slots held"
+            check(ops.launches["routed"] - before == 2,
+                  f"{what}: {ops.launches['routed'] - before} launches "
+                  f"counted for two calls")
+            check(torch.equal(got, again), f"{what}: a repeat gave other "
+                                           f"bits")
+            if held == 0:
+                check(not bool(got.any()), f"{what}: not zero")
+                print(f"    {what}: zeros, repeat bit-identical")
+                continue
+            err = float((got.float() - want.float()).abs().max())
+            top = float(want.float().abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= ROUTED_TOL * top,
+                  f"{what}: max abs err {err:.4g} against {ROUTED_TOL} x "
+                  f"max |y| {top:.4g}")
+            worst = max(worst, err / top)
+            print(f"    {what}: max abs err {err:.4g} = {err / top:.4f} of "
+                  f"max |y| {top:.4g} (tol {ROUTED_TOL}); bits equal the "
+                  f"plain version's: {torch.equal(got, want)}; repeat "
+                  f"bit-identical")
+            if T != 1:
+                continue
+            sel = top_e[0][top_e[0] < e_held]
+            xs = x.expand(held, 1, D)
+            gg, gu, gd = w_gate[sel], w_up[sel], w_down[sel]
+            t = timed(lambda: ops.routed_experts(*args),
+                      lambda: routed_plain(*args),
+                      lambda: torch.bmm(F.silu(torch.bmm(xs, gg))
+                                        * torch.bmm(xs, gu), gd),
+                      iters=50, plain_iters=10)
+            bound_ms, bound_by = work.routed_work(1, held, D, Fe, 2).bound()
+            print(f"[15] routed {arch} T=1, {held} held: kernel {t['ms']:.4f} "
+                  f"({t['device_ms']:.4f}) ms back to back (device), plain "
+                  f"{t['plain_ms']:.4f} ({t['plain_device_ms']:.4f}), three "
+                  f"bmm over the gathered experts {t['library_ms']:.4f} "
+                  f"({t['library_device_ms']:.4f}); bound {bound_ms:.4f} ms "
+                  f"({bound_by}; device share "
+                  f"{bound_ms / t['device_ms']:.1%}, "
+                  f"{held * 3 * D * Fe * 2 / t['device_ms'] / 1e6:.0f} GB/s)")
+            shapes.append(dict(shape=f"{arch}: T 1, {held} of {k} slots "
+                                     f"held, D {D}, F {Fe}, bf16",
+                               **t, bound_ms=bound_ms, bound_by=bound_by))
+        del w_gate, w_up, w_down
+    print(f"[15] routed: kernel == plain within {ROUTED_TOL} of the largest "
+          f"output (worst {worst:.4f}); repeats bit-identical; one launch "
+          f"counted a call")
+    return {"name": "routed", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/routed.cu",
+            "replaces": "none: new to the port (the reference's routed FFN "
+                        "is XLA's)", "max_abs_err": worst,
+            **{k: shapes[0][k] for k in TIMES}, "shapes": shapes}
+
+
 def _mlstm_inputs(S: int, dtype: torch.dtype, gen: torch.Generator):
     """xlstm-1.3b's head shape (H 4, dh 512) at batch 1; q.k of unit
     scale, as the model's dh**-0.5 scaling of both gives."""
@@ -832,6 +949,14 @@ def phase_serve(card_line: str, arch: str, sessions: int, turns: int,
 
     check(all(launches[k] > 0 for k in kernels),
           f"{arch}: the main path skipped a kernel: {launches}")
+    if "routed" in kernels:
+        # one launch a routed layer a decode step: every replica's replayed
+        # steps and the eager step before each capture; no prefill
+        steps = len(calls) * (gen_len - 1) + decoder.captures
+        n_routed = sum(map(cfg.routed, cfg.layer_list()))
+        check(launches["routed"] == n_routed * steps,
+              f"{arch}: {launches['routed']} routed launches, "
+              f"{n_routed} routed layers x {steps} decode steps expected")
     n_leaves = len(list(decoder.model.param_leaves()))
     check(launches["fingerprint"] == n_leaves
           and all(n == 0 for k, n in launches.items() if k not in kernels),
@@ -1430,8 +1555,9 @@ def phase_moe(card_line: str, fp_row: dict) -> dict:
                             check_large_leaf(card_line, fp_row)),
                            ("llama4-scout-17b-a16e",
                             check_frontend(card_line))):
-        got = phase_serve(card_line, arch, 2, 3, 384, 8, ("fingerprint",), 2,
-                          layers=MOE_LAYERS, check_model=check_fn, tag="[10]")
+        got = phase_serve(card_line, arch, 2, 3, 384, 8,
+                          ("fingerprint", "routed"), 2, layers=MOE_LAYERS,
+                          check_model=check_fn, tag="[10]")
         for name, n in got.items():
             launches[name] = launches.get(name, 0) + n
     check_frontends(card_line)
@@ -2510,7 +2636,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run (3, 10, 12, 13, "
-                         "14), "
+                         "14, 15), "
                          "after the build; a partial run prints no result")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2548,6 +2674,8 @@ def run_only(card_line: str, phases) -> int:
         phase_deployment(card_line)
     if "14" in phases:
         phase_graphs(card_line)
+    if "15" in phases:
+        phase_routed()
     return 0
 
 
@@ -2558,7 +2686,7 @@ def run_all(card_line: str, t_start: float) -> int:
                        device="cuda")
     fp = phase_fingerprint(full)
     del full
-    rows = [phase_swa(), fp, phase_rglru(), phase_mlstm()]
+    rows = [phase_swa(), fp, phase_rglru(), phase_mlstm(), phase_routed()]
     phase_layers()
     # the main paths: (arch, sessions, turns, prompt, generated, kernels,
     # turn whose prefill is profiled)

@@ -1,7 +1,7 @@
 """Public wrappers around the CUDA kernels, and the kernels as operators.
 
 Each kernel is an operator of the ``repro_torch`` library
-(``torch.ops.repro_torch.{swa,rglru,mlstm,fingerprint}``): its CUDA
+(``torch.ops.repro_torch.{swa,rglru,mlstm,fingerprint,routed}``): its CUDA
 implementation launches the kernel and counts the launch, its fake
 implementation gives the output's shapes and dtypes without running
 anything, and its FLOP formula (``torch.utils.flop_counter``) and byte
@@ -14,9 +14,10 @@ tensor (a trace), and runs the kernel's plain version for a CPU tensor;
 there is no fallback from one to the other.  The wrappers' own checks stay
 outside the operators.  A kernel takes raw pointers, which a DTensor does not
 have: the wrappers raise on one, and the model calls them on local shards
-(``local_map``).  The SWA, RG-LRU and mLSTM kernels are forward only:
-their wrappers raise for CUDA inputs that autograd would differentiate,
-rather than return a result that silently drops the gradient.
+(``local_map``).  The SWA, RG-LRU, mLSTM and routed-experts kernels are
+forward only: their wrappers raise for CUDA inputs that autograd would
+differentiate, rather than return a result that silently drops the
+gradient.
 ``launches`` counts kernel launches by name (see ``kernels.cuda``).
 """
 
@@ -40,12 +41,13 @@ from repro_torch.kernels.fingerprint import (fingerprint_cuda,
 from repro_torch.kernels.mlstm import (State, mlstm_cuda, mlstm_fake,
                                        mlstm_plain)
 from repro_torch.kernels.rglru import rglru_cuda, rglru_fake, rglru_plain
+from repro_torch.kernels.routed import routed_cuda, routed_fake, routed_plain
 from repro_torch.kernels.swa import swa_cuda, swa_fake, swa_plain
 
 __all__ = ["KERNEL_OPS", "fingerprint", "host_ints", "host_side", "launches",
            "mlstm_chunkwise", "mlstm_chunkwise_state", "op_work",
-           "reset_launches", "rglru_scan", "sliding_window_attention",
-           "traced"]
+           "reset_launches", "rglru_scan", "routed_experts",
+           "sliding_window_attention", "traced"]
 
 _M32 = 0xFFFFFFFF
 
@@ -58,6 +60,8 @@ _LIB.define("rglru(Tensor a, Tensor x) -> Tensor")
 _LIB.define("mlstm(Tensor q, Tensor k, Tensor v, Tensor it, Tensor ft, "
             "int chunk) -> (Tensor, Tensor, Tensor, Tensor)")
 _LIB.define("fingerprint(Tensor x) -> Tensor")
+_LIB.define("routed(Tensor x, Tensor top_e, Tensor top_w, Tensor w_gate, "
+            "Tensor w_up, Tensor w_down, int e0, int e_local) -> Tensor")
 
 
 def _mlstm_flat(q, k, v, it, ft, chunk):
@@ -69,7 +73,8 @@ for _name, _cuda, _fake in (("swa", swa_cuda, swa_fake),
                             ("rglru", rglru_cuda, rglru_fake),
                             ("mlstm", _mlstm_flat, mlstm_fake),
                             ("fingerprint", fingerprint_cuda,
-                             fingerprint_fake)):
+                             fingerprint_fake),
+                            ("routed", routed_cuda, routed_fake)):
     _LIB.impl(_name, _cuda, "CUDA")
     torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
 
@@ -92,16 +97,23 @@ def _fingerprint_work(x) -> work.Work:
     return work.fingerprint_work(x.numel(), x.element_size())
 
 
+def _routed_work(x, top_e, top_w, w_gate, w_up, w_down, e0,
+                 e_local) -> work.Work:
+    return work.routed_work(*top_e.shape, x.shape[1], w_gate.shape[2],
+                            x.element_size())
+
+
 #: the operators the wrappers call
 SWA = torch.ops.repro_torch.swa.default
 RGLRU = torch.ops.repro_torch.rglru.default
 MLSTM = torch.ops.repro_torch.mlstm.default
 FINGERPRINT = torch.ops.repro_torch.fingerprint.default
+ROUTED = torch.ops.repro_torch.routed.default
 
 #: each kernel operator's work from its arguments (tensors, fake or real)
 KERNEL_OPS: Dict[object, Callable[..., work.Work]] = {
     SWA: _swa_work, RGLRU: _rglru_work, MLSTM: _mlstm_work,
-    FINGERPRINT: _fingerprint_work,
+    FINGERPRINT: _fingerprint_work, ROUTED: _routed_work,
 }
 
 
@@ -230,6 +242,19 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         _forward_only("rglru", a, x)
         return RGLRU(a, x)
     return rglru_plain(a, x)
+
+
+def routed_experts(x: torch.Tensor, top_e: torch.Tensor,
+                   top_w: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor, w_down: torch.Tensor, e0: int,
+                   e_local: int) -> torch.Tensor:
+    """An MoE FFN's routed, held experts [e0, e0 + e_local) for a few
+    tokens (see ``kernels.routed``).  x: (T, D); top_e, top_w: (T, k);
+    w_gate, w_up: (e_local, D, F); w_down: (e_local, F, D) -> (T, D)."""
+    if _on_cuda(x, top_e, top_w, w_gate, w_up, w_down):
+        _forward_only("routed", x, w_gate, w_up, w_down)
+        return ROUTED(x, top_e, top_w, w_gate, w_up, w_down, e0, e_local)
+    return routed_plain(x, top_e, top_w, w_gate, w_up, w_down, e0, e_local)
 
 
 def fingerprint(x: torch.Tensor) -> int:

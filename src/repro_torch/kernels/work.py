@@ -81,3 +81,13 @@ def fingerprint_work(n: int, elem: int) -> Work:
     """A multiply, shift, xor and add a word: integer operations, no
     FLOPs; the words in, one uint32 out."""
     return Work(0, 4 * n, CORE_OPS, n * elem + 4)
+
+
+def routed_work(T: int, k: int, D: int, F: int, elem: int) -> Work:
+    """Every slot's three D x F products, two flops a weight, on the
+    tensor cores' rate; bytes of the slots' three matrices, x and the
+    output in ``elem`` bytes and the routes.  From shapes alone every
+    slot counts as routed to a held expert: the most the call can read."""
+    flops = 6 * T * k * D * F
+    n_bytes = T * k * 3 * D * F * elem + 2 * T * D * elem + T * k * 12
+    return Work(flops, flops, _rate(elem), n_bytes)

@@ -17,6 +17,14 @@ of the experts (``moe.held``) routes over all of them and computes its
 own experts' part: routes to the others are dropped as a sharded rank's
 are, and their part is left out.
 
+A few tokens with no gradient asked for (T·k at most the experts held and
+T within the capacity, so that no route can be dropped) take a shorter
+path of the same semantics: ``kernels.ops.routed_experts`` computes only
+the routed, held experts' products, reading their weights in place (on the
+card a hand-written kernel, ``kernels/csrc/routed.cu``), and adds each
+token's weighted rows in the same order, rounded at the same places.
+Every batch-1 decode step takes it; prefill and training keep the buffer.
+
 On a mesh (a ``ShardCtx``), ``moe_ffn`` runs the reference's
 expert-parallel branch: the experts are cut over "model", each rank runs
 ``moe_ffn_local`` on its slice of experts and the tokens of its data
@@ -34,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import Partial
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
 from repro_torch.parallel import comm, sharding
 from repro_torch.runtime import spans
@@ -78,7 +87,10 @@ def moe_ffn_local(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
     x: (T, D); the expert weights in ``p`` are that slice's,
     (e_local, D, F) and (e_local, F, D).  Returns the slice's contribution
-    (T, D); with experts spread over devices the caller sums the slices."""
+    (T, D); with experts spread over devices the caller sums the slices.
+    With T·k <= e_local, T <= C (each expert takes at most T routes, so
+    none is dropped) and no gradient asked for, only the routed, held
+    experts' products run (``ops.routed_experts``)."""
     m = cfg.moe
     T, D = x.shape
     k = m.top_k
@@ -87,6 +99,11 @@ def moe_ffn_local(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     # the selection bias where the router has one (sigmoid scoring)
     bias = (p["router_bias"],) if "router_bias" in p else ()
     top_w, top_e = route(cfg, p["router"], x, *bias)
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *(p[n] for n in _EXPERTS)))
+    if T * k <= e_local and T <= C and not wants_grad:
+        return ops.routed_experts(x, top_e, top_w, p["w_gate"], p["w_up"],
+                                  p["w_down"], e0, e_local)
     flat_e = top_e.reshape(-1)                          # (T·k,)
     flat_w = top_w.reshape(-1).to(x.dtype)
     flat_tok = torch.arange(T, device=x.device).repeat_interleave(k)

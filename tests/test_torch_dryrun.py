@@ -29,6 +29,7 @@ from repro.configs import list_archs as jax_list_archs
 from repro.launch import costing as jcosting
 from repro.launch import shapes as jshapes
 from repro.models import common as jcommon
+from repro.models import moe as jmoe
 from repro.models import recurrent as jrec
 from repro.models.transformer import init_caches as jinit_caches
 from repro.optim.adamw import AdamWConfig as JAdamWConfig
@@ -51,7 +52,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = jax_list_archs()
-KERNELS = ("swa", "rglru", "mlstm", "fingerprint")
+KERNELS = ("swa", "rglru", "mlstm", "fingerprint", "routed")
 
 
 def _dtype(t) -> str:
@@ -242,7 +243,12 @@ def test_products_match_reference_jaxpr(arch, kind, monkeypatch):
     * the mLSTM's chunk body: the reference writes its normalizer as a
       product with ones (``recurrent.py:88``) and other products through
       three-operand einsums; the port's plain version sums.  Both bodies
-      are swapped for one elementwise stand-in, and the rest is held equal.
+      are swapped for one elementwise stand-in, and the rest is held equal;
+    * decode of a routed layer (B·k <= the experts, B <= the capacity):
+      the port runs the routed, held experts' products alone through the
+      routed kernel (its operator's own formula), the reference every
+      expert's over its (E, C, D) buffer; the port's products leave the
+      kernel out, so they equal the reference's less its buffer products.
     """
     jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32",
                                remat="none")
@@ -271,6 +277,13 @@ def test_products_match_reference_jaxpr(arch, kind, monkeypatch):
         hd = tcfg.d_model // tcfg.n_heads
         n_slstm = sum(1 for s in tcfg.layer_list() if s.kind == "slstm")
         want -= n_slstm * 2 * B * tcfg.n_heads * hd * hd
+    if kind == "decode" and tcfg.moe is not None:
+        m = tcfg.moe
+        n_routed = sum(map(tcfg.routed, tcfg.layer_list()))
+        C = jmoe._capacity(B, m.top_k, m.n_experts, m.capacity_factor)
+        assert B * m.top_k <= m.n_experts and B <= C
+        want -= n_routed * 3 * 2 * m.n_experts * C * tcfg.d_model * m.d_expert
+        assert r["kernels"].get("routed", 0) == n_routed
     assert got == want
 
 
