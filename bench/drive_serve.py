@@ -6,23 +6,30 @@ a closed loop with one request in flight.
 
 The window opens at the first request and closes on the reply that ends
 past ``--seconds`` (in a traced run, past ``--seconds`` plus the time
-spent reading the trace of its first part).  Then the peak memory is read, every replica's
-session state is held against the histories the client was served, the
-program's state is freed, and the plain reference checks every served
-token of the window (``reference/serve.py``) and the weights' digest.
+spent reading the trace of its first part).  Then the peak memory is
+read, the simulation runs on until every replica has applied the last
+request, every replica's session state is held against the histories
+the client was served, the program's state is freed, and the plain
+reference checks every served token of the window (``reference/serve.py``:
+the widest logit gap and, where the cell's limits name it, the share of
+gaps past a threshold) and the weights' digest.
 """
 
 from __future__ import annotations
 
 import gc
 import time
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 from bench import harness, trace
 from bench.reference import serve as ref_serve
 from bench.traffic import generator
 
 TRACE_SECONDS = 4.0
+# virtual µs that the replica check lets the simulation run on for a
+# replica that applies the last request after the client's replies (a
+# lagging replica catches up in about 1.4 µs)
+DRAIN_US = 10_000.0
 
 
 def _max_request_bytes(mix: Dict, vocab: int) -> int:
@@ -46,13 +53,55 @@ def _patches(model: Dict) -> List[trace.Patch]:
     return out
 
 
-def run(ctx: harness.Context) -> Dict:
+def start(decode_fn: Callable[[str, List[int], int], List[int]],
+          mix: Dict, vocab: int):
+    """The token server over ``decode_fn`` (three replicas, f = 1,
+    f_m = 1), a client for each of the mix's concurrent sessions, and the
+    warm-up: the largest shapes the mix reaches, then a short prompt."""
     from repro_torch.core.consensus import ConsensusConfig
-    from repro_torch.launch.serve import GreedyDecoder, set_deterministic
-    from repro_torch.runtime.attest import fingerprint_tree
     from repro_torch.runtime.server import ReplicatedServer
 
+    server = ReplicatedServer.build(decode_fn, cfg=ConsensusConfig(
+        f=1, f_m=1, max_request_bytes=_max_request_bytes(mix, vocab)))
+    clients = [server.cluster.new_client() for _ in range(mix["concurrent"])]
+    warm = server.cluster.new_client()
+    server.generate(warm, "warmup", [1] * (mix["max_history"] - 2), 2)
+    server.generate(warm, "warmup-short", [2] * 16, 2)
+    return server, clients
+
+
+def replicas_differing(cluster, hist: Dict[str, List[int]]) -> int:
+    """Replicas whose sessions differ from the histories the client was
+    served.  The client takes f + 1 matching replies, so a replica may
+    apply the last request a little after them: the simulation first
+    runs until every replica holds the histories, or for ``DRAIN_US`` of
+    virtual time, after which a replica that never converged counts."""
+    def holds(app) -> bool:
+        return all(app.sessions.get(sid) == h for sid, h in hist.items())
+
+    cluster.sim.run_until(
+        lambda: all(holds(r.app) for r in cluster.replicas),
+        timeout=DRAIN_US)
+    return sum(not holds(r.app) for r in cluster.replicas)
+
+
+def gap_threshold(ctx: harness.Context) -> Optional[float]:
+    """The threshold of the cell's ``gap_share``, or None where the cell
+    compares no share; a limit without a threshold, or a threshold
+    without a limit, is refused before anything is built."""
+    tau = ctx.thresholds.get("gap_share")
+    if (tau is None) != ("gap_share" not in ctx.limits):
+        raise ValueError(f"{ctx.cell['name']}: gap_share needs both a "
+                         "limit and a threshold in its limits file")
+    return tau
+
+
+def run(ctx: harness.Context) -> Dict:
+    from repro_torch.launch.serve import GreedyDecoder, set_deterministic
+    from repro_torch.runtime.attest import fingerprint_tree
+
     m, mix, dev = ctx.model, ctx.mix, ctx.device
+    tau = gap_threshold(ctx)
     set_deterministic()
     model = harness.build_model(ctx)
     digest = fingerprint_tree(model.param_leaves())
@@ -63,14 +112,8 @@ def run(ctx: harness.Context) -> Dict:
             out = decoder(session, hist, n)
             out[-1] = (out[-1] + 1) % m["vocab"]
             return out
-    server = ReplicatedServer.build(decode_fn, cfg=ConsensusConfig(
-        f=1, f_m=1, max_request_bytes=_max_request_bytes(mix, m["vocab"])))
+    server, clients = start(decode_fn, mix, m["vocab"])
     ctx.replicas = len(server.cluster.replicas)
-    clients = [server.cluster.new_client() for _ in range(mix["concurrent"])]
-    warm = server.cluster.new_client()
-    # the largest shapes the mix reaches, then a short prompt
-    server.generate(warm, "warmup", [1] * (mix["max_history"] - 2), 2)
-    server.generate(warm, "warmup-short", [2] * 16, 2)
     ctx.sync()
     decoder.timings.clear()
     requests = generator.session_requests(mix, m["vocab"], ctx.seed)
@@ -115,21 +158,19 @@ def run(ctx: harness.Context) -> Dict:
     ctx.records = recs
     ctx.window_closed()
 
-    # every replica's sessions against the histories the client was served
-    snaps = [dict(r.app.snapshot()) for r in server.cluster.replicas]
-    mismatched = sum(
-        1 for s in snaps
-        if any(tuple(h) != s.get(sid) for sid, h in hist.items()))
-    ctx.check("replicas_differing", mismatched, 0)
-    del server, decode_fn, decoder, model, clients, warm
+    ctx.check("replicas_differing",
+              replicas_differing(server.cluster, hist), 0)
+    del server, decode_fn, decoder, model, clients
     gc.collect()
     ctx.free()
 
     d = ref_serve.weights_digest(m, ctx.seed, dev)
     ctx.check("weights_digest_mismatch", int(d != digest), 0)
     res = ref_serve.check(m, ctx.seed, dev, checked(m, recs, hist),
-                          control=ctx.control)
+                          control=ctx.control, tau=tau)
     ctx.check("max_logit_gap", res["max_logit_gap"])
+    if tau is not None:
+        ctx.check("gap_share", res["gap_share"])
     ctx.info.update(res)
     ctx.attempted = len(recs)
     ctx.failed = sum(not r["ok"] for r in recs)

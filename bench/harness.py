@@ -18,7 +18,8 @@ Files found by name, each a file of its own:
   A metric named ``<quantity>.<mix>`` without a file of its own is read
   by ``metrics/<quantity>.py``, the reader that its cells share;
 * ``limits/<cell>.json``: the limit of each number that ``correct``
-  compares.
+  compares (``limits``), and the parameters of those numbers
+  (``thresholds``).
 """
 
 from __future__ import annotations
@@ -145,9 +146,12 @@ def clone_model(model):
     return out
 
 
-def load_limits(cell: str) -> Dict[str, float]:
+def load_limits(cell: str, key: str = "limits") -> Dict[str, float]:
+    """The cell's limits, or with ``key="thresholds"`` the parameters of
+    the numbers compared (a gap share's threshold)."""
     path = BENCH / "limits" / f"{cell}.json"
-    return json.loads(path.read_text())["limits"] if path.exists() else {}
+    return json.loads(path.read_text()).get(key, {}) if path.exists() \
+        else {}
 
 
 def host_probe_ms() -> float:
@@ -182,6 +186,7 @@ class Context:
         self.device, self.t_start, self.smoke = device, t_start, smoke
         self.fault, self.control = fault, control
         self.limits = load_limits(cell_name)
+        self.thresholds = load_limits(cell_name, "thresholds")
         self.checks: Dict[str, Dict[str, float]] = {}
         self.info: Dict = {}
         self.summary: Optional[Dict] = None

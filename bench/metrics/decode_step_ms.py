@@ -1,8 +1,11 @@
-"""``decode_step_ms`` of a serving cell that has no reader of its own, read
-as the decode cell's reader (``decode_step_ms.decode.py``) reads it."""
+"""Decode ms a step, in every serving cell: the decode seconds of every
+replica's model call (``GreedyDecoder.timings``) over their decode steps,
+after the traced part."""
 
-from bench.harness import read_metric
+from bench.readers import calls, untraced
 
 
 def read(run):
-    return read_metric("decode_step_ms.decode", run)
+    c = list(calls(untraced(run)[0]))
+    steps = sum(n for _, _, n in c)
+    return 1e3 * sum(d for _, d, _ in c) / steps if steps else None

@@ -7,13 +7,15 @@ sequence through the layers in fp32, one layer at a time (each drawn
 again from the seed, so that it fits beside the hidden states), and reads
 at each such position the gap by which the served token's logit lies
 below its best.  With ``control``, the same pass in fp8 (``model.fp8``)
-gives the gap of the token that the lower precision puts first.  The
-layers, leaves and head are those of the configuration's reference
-module (``bench/arch.py``)."""
+gives the gap of the token that the lower precision puts first.  Beside
+the widest gap it reads the share of gaps past a threshold, which a rare
+routing flip does not swamp: such a flip moves one bf16 token about as
+far as fp8 moves many.  The layers, leaves and head are those of the
+configuration's reference module (``bench/arch.py``)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,9 +25,35 @@ from bench.reference import fingerprint, model as base
 Seq = Dict[str, object]   # tokens, segments, checks [(position, token)]
 
 
-@torch.no_grad()
+def gap_share(gaps: Sequence[float], tau: float) -> float:
+    """The share of ``gaps`` above ``tau`` (0 to 1)."""
+    return sum(g > tau for g in gaps) / len(gaps)
+
+
 def check(model: Dict, seed: int, device, seqs: Sequence[Seq],
-          control: bool = False) -> Dict[str, float]:
+          control: bool = False, tau: Optional[float] = None
+          ) -> Dict[str, float]:
+    """The widest gap, the tokens checked and those off the reference's
+    argmax, and given ``tau`` the share of gaps past it; with ``control``
+    the control's widest gap and share too."""
+    got, ctrl, missed = gaps(model, seed, device, seqs, control)
+    out = {"max_logit_gap": max(got), "tokens_checked": len(got),
+           "tokens_not_argmax": missed}
+    if control:
+        out["control_max_logit_gap"] = max(ctrl)
+    if tau is not None:
+        out["gap_share"] = gap_share(got, tau)
+        if control:
+            out["control_gap_share"] = gap_share(ctrl, tau)
+    return out
+
+
+@torch.no_grad()
+def gaps(model: Dict, seed: int, device, seqs: Sequence[Seq],
+         control: bool = False) -> Tuple[List[float], List[float], int]:
+    """The gap of every checked token, the control's gap at each (empty
+    without ``control``), and the number of checked tokens that are not
+    the reference's argmax."""
     base.exact_fp32()
     ref = arch.module(model)
     f32 = torch.float32
@@ -45,7 +73,7 @@ def check(model: Dict, seed: int, device, seqs: Sequence[Seq],
                 xq[i] = ref.layer(model, p, xq[i][None], s["segments"],
                                   quant="fp8", index=l)[0]
         del p
-    gaps: List[float] = []
+    got: List[float] = []
     ctrl: List[float] = []
     missed = 0
     for i, s in enumerate(seqs):
@@ -53,17 +81,13 @@ def check(model: Dict, seed: int, device, seqs: Sequence[Seq],
         tok = torch.tensor([c[1] for c in s["checks"]], device=device)
         lg = ref.logits(model, w_head, out_norm, xs[i][pos])
         best = lg.max(-1).values
-        gaps.extend((best - lg.gather(1, tok[:, None])[:, 0]).tolist())
+        got.extend((best - lg.gather(1, tok[:, None])[:, 0]).tolist())
         missed += int((lg.argmax(-1) != tok).sum())
         if control:
             lq = ref.logits(model, w_head, out_norm, xq[i][pos], "fp8")
             pick = lq.argmax(-1)
             ctrl.extend((best - lg.gather(1, pick[:, None])[:, 0]).tolist())
-    out = {"max_logit_gap": max(gaps), "tokens_checked": len(gaps),
-           "tokens_not_argmax": missed}
-    if control:
-        out["control_max_logit_gap"] = max(ctrl)
-    return out
+    return got, ctrl, missed
 
 
 @torch.no_grad()
